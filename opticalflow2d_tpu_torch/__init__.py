@@ -1,0 +1,28 @@
+"""PyTorch and CUDA port of tpuflow2d: 2D deformable image registration.
+
+The port of ``opticalflow2d_tpu`` (the JAX package, kept as the reference).
+Images are ``f32[nx, ny]`` tensors and motion fields ``f32[2, nx, ny]``, as
+there: axis 0 is the reference's "x", channel 0 the displacement along it.
+A run takes place on the device of its input tensors; on CUDA the main
+path's hand-written kernels (``opticalflow2d_tpu_torch.kernels``) carry it.
+This slice ports the diffusion (Horn-Schunck) registration.
+"""
+
+from opticalflow2d_tpu_torch.config import (
+    CompatFlags,
+    Method,
+    MotionAccumulation,
+    RegConfig,
+)
+from opticalflow2d_tpu_torch.engine.registration import RegistrationResult, register
+from opticalflow2d_tpu_torch.engine.session import OpticalFlow2d
+
+__all__ = [
+    "Method",
+    "MotionAccumulation",
+    "CompatFlags",
+    "RegConfig",
+    "register",
+    "RegistrationResult",
+    "OpticalFlow2d",
+]

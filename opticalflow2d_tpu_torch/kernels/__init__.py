@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels of the main path, each beside its plain PyTorch
+version in the same module.
+
+A wrapper runs the plain version for a tensor on the CPU, and for a CUDA
+tensor checks it and launches its kernel or raises. ``LAUNCHES`` counts the
+kernel launches per wrapper, so a run can show that it went through them.
+"""
+
+LAUNCHES = {"diffusion_block": 0, "diffusion_step": 0, "warp2d": 0, "compose": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

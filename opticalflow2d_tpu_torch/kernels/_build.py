@@ -1,0 +1,133 @@
+"""Build the CUDA kernels on first use and load them with ctypes.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, under ``build/kernels/`` at the repository
+root. The file name carries a hash of the sources and flags, so a changed
+source builds anew and an unchanged one is loaded as it is. ``-fmad=false``
+keeps each kernel rounding op for op like its plain PyTorch version on the
+same device; there is no ``--use_fast_math``.
+
+Each C entry point takes device pointers, sizes and PyTorch's current stream,
+launches without synchronising and returns ``cudaGetLastError()``;
+``launch`` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each entry point, the stream last for every launcher.
+_SIGNATURES = {
+    "of2d_error_string": ((_I,), ctypes.c_char_p),
+    "of2d_max_smem_optin": ((_I,), _I),
+    "of2d_diffusion_block_smem_bytes": ((_I,), _I),
+    "of2d_diffusion_block_nblocks": ((_I, _I), _I),
+    "of2d_diffusion_block": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
+    "of2d_diffusion_step": ((_P, _P, _P, _P, _P, _I, _I, _F, _P), _I),
+    "of2d_warp2d": ((_P, _P, _P, _I, _I, _P), _I),
+    "of2d_compose": ((_P, _P, _P, _I, _I, _P), _I),
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libof2d_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless it exists; returns its path. The
+    compiler's register and shared-memory report goes beside it as ``.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent builder never loads half a file
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` on ``device`` with PyTorch's current
+    stream appended; raise if the launch reported an error."""
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        msg = lib.of2d_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU: only then does a wrapper run
+    its plain version. Anything else goes to the kernel's checks."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    """Reject what the kernels do not take: another device, dtype, shape or
+    a non-contiguous layout."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to float32, as JAX rounds a weakly typed Python scalar
+    when it meets a float32 array."""
+    return ctypes.c_float(x).value

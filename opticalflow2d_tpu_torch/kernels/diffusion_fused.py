@@ -1,0 +1,53 @@
+"""One fused Horn-Schunck diffusion step: zero-border quasi-laplacian, L-SSD
+force and Jacobi update in one pass (CUDA ``csrc/diffusion_step.cu``, the
+counterpart of ``opticalflow2d_tpu/pallas_kernels/diffusion_fused.py``).
+
+The registration driver runs it to recompute the taken steps of a block in
+which the Logger stop fired (``engine.registration._solve_level_blocked``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opticalflow2d_tpu_torch import kernels
+from opticalflow2d_tpu_torch.kernels import _build
+
+
+def diffusion_step_ref(u: torch.Tensor, grad_i: torch.Tensor, it: torch.Tensor,
+                       alpha: float) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, in the kernel's order of
+    operations: ``q = (up + down + (left + right)) * 0.25``, zero on the
+    border. ``solvers.diffusion.diffusion_step`` sums the four neighbours
+    left to right instead; the two differ by about an ulp."""
+    q = torch.zeros_like(u)
+    q[:, 1:-1, 1:-1] = (
+        u[:, :-2, 1:-1] + u[:, 2:, 1:-1] + (u[:, 1:-1, :-2] + u[:, 1:-1, 2:])
+    ) * 0.25
+    gx, gy = grad_i[0], grad_i[1]
+    inner = it + q[0] * gx + q[1] * gy
+    den = _build.f32(alpha * alpha) + gx * gx + gy * gy
+    scale = inner / den
+    return torch.stack([q[0] - gx * scale, q[1] - gy * scale])
+
+
+def diffusion_step_fused(u: torch.Tensor, grad_i: torch.Tensor, it: torch.Tensor,
+                         alpha: float) -> torch.Tensor:
+    """One diffusion step of ``u [2, nx, ny]`` with ``grad_i [2, nx, ny]``
+    and ``it [nx, ny]``: the plain version on the CPU, the kernel on CUDA."""
+    if _build.on_cpu(u, grad_i, it):
+        return diffusion_step_ref(u, grad_i, it, alpha)
+    if u.device.type != "cuda":
+        raise ValueError(f"no diffusion step for device {u.device}")
+    _, nx, ny = u.shape
+    for name, t, shape in (("u", u, (2, nx, ny)), ("grad_i", grad_i, (2, nx, ny)),
+                           ("it", it, (nx, ny))):
+        _build.check_cuda(name, t, shape, u.device)
+    out = torch.empty_like(u)
+    _build.launch(
+        "of2d_diffusion_step", u.device, u.data_ptr(), grad_i[0].data_ptr(),
+        grad_i[1].data_ptr(), it.data_ptr(), out.data_ptr(), nx, ny,
+        _build.f32(alpha * alpha),
+    )
+    kernels.LAUNCHES["diffusion_step"] += 1
+    return out
