@@ -3,9 +3,11 @@
 The port of ``opticalflow2d_tpu`` (the JAX package, kept as the reference).
 Images are ``f32[nx, ny]`` tensors and motion fields ``f32[2, nx, ny]``, as
 there: axis 0 is the reference's "x", channel 0 the displacement along it.
-A run takes place on the device of its input tensors; on CUDA the main
-path's hand-written kernels (``opticalflow2d_tpu_torch.kernels``) carry it.
-This slice ports the diffusion (Horn-Schunck) registration.
+The entry points (``register``, ``OpticalFlow2d``) run on the GPU unless
+the caller passes ``device="cpu"``; without a CUDA device they raise. On
+CUDA the hand-written kernels (``opticalflow2d_tpu_torch.kernels``) carry
+the run; on the CPU their plain PyTorch versions do. Ported so far: the
+diffusion (Horn-Schunck) registration and Thirion and diffeomorphic demons.
 """
 
 from opticalflow2d_tpu_torch.config import (

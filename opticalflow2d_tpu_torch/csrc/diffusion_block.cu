@@ -21,9 +21,9 @@
 // Sums: for each iteration, sqrt(d0^2 + d1^2) of the step and of the
 //   previous field over the tile's interior image cells, reduced in a fixed
 //   order (thread, then warp shuffle tree, then warps in order) into
-//   [nblocks, k, 2] partials; a second kernel adds the blocks in order. No
-//   float atomics, so the Logger error, and with it the iteration count, is
-//   the same from run to run.
+//   [nblocks, k, 2] partials; a second kernel adds the blocks in order
+//   (partials.cuh). No float atomics, so the Logger error, and with it the
+//   iteration count, is the same from run to run.
 // Numerics: the Pallas kernel's order of operations, with -fmad=false, so
 //   the interior rounds like k calls of diffusion_step_ref on the device.
 
@@ -31,21 +31,14 @@
 
 #include <cstddef>
 
+#include "partials.cuh"
+
 namespace {
 
 constexpr int kTile = 32;       // interior tile, both axes
 constexpr int kThreadsY = 32;   // along y, the contiguous axis: one warp a row
 constexpr int kThreadsX = 8;    // warps per block
 constexpr int kThreads = kThreadsX * kThreadsY;
-constexpr int kSumThreads = 256;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float magnitude(float a, float b) { return sqrtf(a * a + b * b); }
 
 // Shared floats: two buffers of u (2 planes each), g (3 planes), and the
 // per-iteration warp partials [k][kThreadsX][2].
@@ -160,26 +153,6 @@ diffusion_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
   }
 }
 
-// sums[o] = sum over blocks b, in a fixed order, of partials[b][o];
-// one thread block per output o in [0, 2k).
-__global__ void __launch_bounds__(kSumThreads)
-sum_partials_kernel(const float* __restrict__ partials, float* __restrict__ sums,
-                    int nblocks, int k) {
-  __shared__ float warps[kSumThreads / 32];
-  const int o = blockIdx.x;
-  float acc = 0.f;
-  for (int b = threadIdx.x; b < nblocks; b += kSumThreads)
-    acc += partials[static_cast<size_t>(b) * 2 * k + o];
-  acc = warp_sum(acc);
-  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-    for (int w = 0; w < kSumThreads / 32; ++w) total += warps[w];
-    sums[o] = total;
-  }
-}
-
 dim3 tile_grid(int nx, int ny) {
   return dim3((ny + kTile - 1) / kTile, (nx + kTile - 1) / kTile);
 }
@@ -209,9 +182,8 @@ extern "C" int of2d_diffusion_block(const float* u, const float* g, float* out,
       u, g, out, partials, nx, ny, k, a2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<2 * k, kSumThreads, 0, stream>>>(
-      partials, sums, static_cast<int>(grid.x * grid.y), k);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sum_partials(partials, sums, static_cast<int>(grid.x * grid.y), 2 * k,
+                             stream);
 }
 
 extern "C" int of2d_max_smem_optin(int device) {

@@ -8,11 +8,11 @@
 //   smooth motion) and writes 4 B; the compose does the same for two
 //   channels.
 // Design: one thread per output pixel reads its four taps at clamped
-//   indices. Hopper has a hardware gather, so the TPU kernel's halo-bounded
-//   roll chain (and its exact-gather fallback) has no counterpart: the
-//   gather is exact for any displacement. One templated body serves both
-//   operations: 1 channel with passthrough of the image, or 2 channels
-//   with the increment added (warp_fused.py:161-170).
+//   indices (bilinear.cuh). Hopper has a hardware gather, so the TPU
+//   kernel's halo-bounded roll chain (and its exact-gather fallback) has no
+//   counterpart: the gather is exact for any displacement. One templated
+//   body serves both operations: 1 channel with passthrough of the image,
+//   or 2 channels with the increment added (warp_fused.py:161-170).
 // Numerics: weights and sums in the order of ops/warp.py:95-114, with
 //   -fmad=false, so the result rounds like warp2d_ref / compose_ref on the
 //   same device.
@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "bilinear.cuh"
 
 namespace {
 
@@ -41,38 +43,15 @@ gather_kernel(const float* __restrict__ data, const float* __restrict__ u,
   const size_t n = static_cast<size_t>(nx) * ny;
   const size_t p = static_cast<size_t>(i) * ny + j;
   const float ux = u[p], uy = u[n + p];
-  const float px = static_cast<float>(i) + ux;
-  const float py = static_cast<float>(j) + uy;
-  const float dxf = floorf(px), dyf = floorf(py);
-  const float fx = px - dxf, fy = py - dyf;
-  const int dx = static_cast<int>(dxf), dy = static_cast<int>(dyf);
-  const bool in_bounds = dx >= 0 && dx < nx && dy >= 0 && dy < ny;
-  const bool has_x1 = dx < nx - 1, has_y1 = dy < ny - 1;
-  const float w00 = (1.f - fx) * (1.f - fy);
-  const float w10 = has_x1 ? fx * (1.f - fy) : 0.f;
-  const float w01 = has_y1 ? (1.f - fx) * fy : 0.f;
-  const float w11 = (has_x1 && has_y1) ? fx * fy : 0.f;
-  const float weight = w00 + w10 + w01 + w11;
-  const float safe_w = weight != 0.f ? weight : 1.f;
-  // Clamped tap indices; (dx + 1) is formed only below nx - 1 so that it
-  // cannot overflow.
-  const int x0 = min(max(dx, 0), nx - 1);
-  const int x1 = dx >= nx - 1 ? nx - 1 : max(dx + 1, 0);
-  const int y0 = min(max(dy, 0), ny - 1);
-  const int y1 = dy >= ny - 1 ? ny - 1 : max(dy + 1, 0);
-  const size_t p00 = static_cast<size_t>(x0) * ny + y0;
-  const size_t p10 = static_cast<size_t>(x1) * ny + y0;
-  const size_t p01 = static_cast<size_t>(x0) * ny + y1;
-  const size_t p11 = static_cast<size_t>(x1) * ny + y1;
+  const Bilinear b = bilinear_at(i, j, ux, uy, nx, ny);
 #pragma unroll
   for (int c = 0; c < kChannels; ++c) {
     const float* d = data + c * n;
-    const float value = d[p00] * w00 + d[p10] * w10 + d[p01] * w01 + d[p11] * w11;
     if (kCompose) {
       const float inc = c == 0 ? ux : uy;
-      out[c * n + p] = in_bounds ? inc + (weight != 0.f ? value / safe_w : 0.f) : d[p];
+      out[c * n + p] = b.in_bounds ? inc + bilinear_sample(d, b) : d[p];
     } else {
-      out[p] = (in_bounds && weight != 0.f) ? value / safe_w : d[p];
+      out[p] = (b.in_bounds && b.weight != 0.f) ? bilinear_value(d, b) / b.weight : d[p];
     }
   }
 }

@@ -1,5 +1,5 @@
-"""The registration driver (PyTorch port of the diffusion path of
-``opticalflow2d_tpu.engine.registration``).
+"""The registration loop (PyTorch port of the diffusion and demons paths
+of ``opticalflow2d_tpu.engine.registration``).
 
 Control flow mirrors the reference (``ImageRegistrationOpticalFlow.cpp:97-151``):
 
@@ -8,7 +8,9 @@ Control flow mirrors the reference (``ImageRegistrationOpticalFlow.cpp:97-151``)
         for refine in range(nrefine):
             warp the moving image, derive
             iterate until niter, or until the relative step norm < tol
-            after iteration 1              (host loop, k iterations a pass)
+            after iteration 1              (host loop: k diffusion
+                                            iterations a pass, or one
+                                            demons iteration)
             compose u <- u o u_est
         upsample to full resolution
 
@@ -35,6 +37,7 @@ from opticalflow2d_tpu_torch.ops.resample import (
 )
 from opticalflow2d_tpu_torch.ops.warp import compose, warp2d
 from opticalflow2d_tpu_torch.solvers.base import derivatives
+from opticalflow2d_tpu_torch.solvers.demons import make_demons_step
 
 
 class LevelTrace(NamedTuple):
@@ -117,21 +120,59 @@ def _solve_level_variational(u, iref, imov, cfg: RegConfig, niter: int, scale: i
     )
 
 
+def _solve_level_demons(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
+    """Thirion / diffeomorphic demons: the solver re-warps and re-derives
+    every iteration (reference ImageRegistrationDemons.cpp:86-137). The
+    Logger's "prev" is the step's input, so the relative error comes from
+    the step's own sums, read on the host once an iteration."""
+    step = make_demons_step(
+        cfg.sigma_i, cfg.sigma_x, cfg.sigma_diffusion, cfg.sigma_fluid,
+        cfg.kernelwidth,
+        diffeomorphic=(cfg.method == Method.DIFFEOMORPHIC_DEMONS),
+        accumulation=cfg.accumulation,
+        conv_flatwrap=cfg.compat.conv_flatwrap,
+        maxabs_bug=cfg.compat.maxabs_bug,
+        with_errors=True,
+    )
+    n_pix = np.float32(u.shape[1] * u.shape[2])
+    tol = np.float32(cfg.convergence_tol)
+    traces = []
+    for _refine in range(cfg.nrefine):
+        iaux = warp2d(imov, u)
+        u_est = torch.zeros_like(u)
+        errs = np.zeros(niter, np.float32)
+        it, conv = 0, False
+        while it < niter and not conv:
+            u_est, sums = step(u_est, iref, iaux)
+            s = sums.cpu().numpy()  # the one host read per iteration
+            dn, pn = s[0] / n_pix, s[1] / n_pix
+            err = np.float32(0) if pn == 0 else dn / pn
+            errs[it] = err
+            if cfg.verbose_stream:
+                print(f"  [scale {scale}] iteration {it + 1}: "
+                      f"relative error {float(err):.6f}", flush=True)
+            conv = bool(err < tol) and it > 1
+            it += 1
+        u = compose(u, u_est)
+        traces.append(LevelTrace(scale, torch.from_numpy(errs), it, 0))
+    return u, traces
+
+
 _NOT_PORTED = {
     Method.CURVATURE: "item 12",
     Method.ELASTIC: "item 9",
     Method.FLUID: "item 10",
-    Method.THIRIONS_DEMONS: "item 11",
-    Method.DIFFEOMORPHIC_DEMONS: "item 11",
 }
 
 
 def _solve_level(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
-    if cfg.method != Method.DIFFUSION:
-        raise NotImplementedError(
-            f"{cfg.method.name} is not ported yet (ROADMAP queue A, "
-            f"{_NOT_PORTED[cfg.method]})")
-    return _solve_level_variational(u, iref, imov, cfg, niter, scale)
+    if cfg.method == Method.DIFFUSION:
+        return _solve_level_variational(u, iref, imov, cfg, niter, scale)
+    if cfg.method in (Method.THIRIONS_DEMONS, Method.DIFFEOMORPHIC_DEMONS):
+        return _solve_level_demons(u, iref, imov, cfg, niter, scale)
+    raise NotImplementedError(
+        f"{cfg.method.name} is not ported yet (ROADMAP queue A, "
+        f"{_NOT_PORTED[cfg.method]})")
 
 
 def _register_impl(iref, imov, cfg: RegConfig, initial_motion=None,
@@ -195,6 +236,19 @@ def _register_impl(iref, imov, cfg: RegConfig, initial_motion=None,
                               coarse_motion=coarse_final)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a run takes place on: ``None`` means CUDA, and raises on a
+    host without it; ``device="cpu"`` asks for the CPU (plain versions of
+    the kernels)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the GPU unless asked otherwise; "
+                'pass device="cpu" to run on the CPU')
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
 def _field(x, dtype, device, name: str, shape: tuple) -> torch.Tensor:
     t = torch.as_tensor(x, dtype=dtype, device=device)
     if tuple(t.shape) != shape:
@@ -204,13 +258,11 @@ def _field(x, dtype, device, name: str, shape: tuple) -> torch.Tensor:
 
 def register(iref, imov, cfg: RegConfig, initial_motion=None,
              start_scale=None, stop_scale=0,
-             initial_coarse_motion=None) -> RegistrationResult:
+             initial_coarse_motion=None, device=None) -> RegistrationResult:
     """Estimate the motion field u with T(x + u) ~= R(x).
 
     Args:
-      iref: reference image ``[nx, ny]``, a tensor or an array. The run
-        takes place on its device (an array runs on the CPU); the other
-        inputs are moved there.
+      iref: reference image ``[nx, ny]``, a tensor or an array.
       imov: moving image ``[nx, ny]``.
       cfg: registration configuration.
       initial_motion: optional ``[2, nx, ny]`` warm-start field; it seeds
@@ -222,12 +274,15 @@ def register(iref, imov, cfg: RegConfig, initial_motion=None,
         (inclusive, coarse -> fine). With ``start_scale < cfg.nscales`` pass
         the full-resolution motion of the finished coarser levels as
         ``initial_motion`` (checkpoint resume).
+      device: where the run takes place; every input, array or tensor, is
+        moved there. ``None`` means CUDA (and raises on a host without
+        it); ``"cpu"`` runs the kernels' plain versions on the CPU.
 
     Returns:
       ``RegistrationResult(motion=[2, nx, ny], traces=..., coarse_motion=...)``.
     """
     dtype = cfg.torch_dtype
-    device = iref.device if isinstance(iref, torch.Tensor) else torch.device("cpu")
+    device = resolve_device(device)
     iref = torch.as_tensor(iref, dtype=dtype, device=device)
     imov = torch.as_tensor(imov, dtype=dtype, device=device)
     if iref.shape != imov.shape or iref.dim() != 2:

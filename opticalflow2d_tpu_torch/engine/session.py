@@ -17,7 +17,11 @@ from typing import Optional, Sequence
 import torch
 
 from opticalflow2d_tpu_torch.config import Method, RegConfig
-from opticalflow2d_tpu_torch.engine.registration import RegistrationResult, register
+from opticalflow2d_tpu_torch.engine.registration import (
+    RegistrationResult,
+    register,
+    resolve_device,
+)
 from opticalflow2d_tpu_torch.ops.warp import warp2d
 
 
@@ -25,9 +29,12 @@ class OpticalFlow2d:
     """Session object holding the last estimated motion field.
 
     Images are ``[nx, ny]`` (axis 0 is the reference's "x"). ``device`` is
-    where the session registers; ``None`` takes the device of the reference
-    image (the CPU for an array). ``get_motion()`` returns ``[nx, ny, 2]``,
-    the MEX readback layout (``WrapperOpticalFlow2d.cpp:105-117``).
+    where the session registers: ``None`` means CUDA (and raises on a host
+    without it), ``"cpu"`` the CPU; images, arrays or tensors, are moved
+    there. ``get_motion()`` returns ``[nx, ny, 2]``, the MEX readback layout
+    (``WrapperOpticalFlow2d.cpp:105-117``). Demons takes the reference's
+    regparams ``[sigma_i, sigma_x, sigma_diff, sigma_fluid, kernelwidth,
+    accumulation]`` (Thirion) or the first five (diffeomorphic).
     """
 
     def __init__(
@@ -47,7 +54,7 @@ class OpticalFlow2d:
         self.config = RegConfig.from_regparams(
             regularisation, niter, nscales, regparams, nrefine, **config_overrides
         )
-        self.device = None if device is None else torch.device(device)
+        self.device = resolve_device(device)
         self.verbose = verbose
         self._result: Optional[RegistrationResult] = None
         if verbose:
@@ -93,8 +100,6 @@ class OpticalFlow2d:
         With ``CompatFlags.persistent_motion`` a second call continues from
         the previous one's coarsest-level field, as the reference's
         persistent MEX object does (ImageRegistration.cpp:137-139)."""
-        if self.device is not None:
-            iref = torch.as_tensor(iref, device=self.device)
         if tuple(iref.shape) != self.dims:
             raise ValueError(f"expected images of shape {self.dims}, got {tuple(iref.shape)}")
         warm_coarse = None
@@ -102,7 +107,7 @@ class OpticalFlow2d:
                 and self._result.coarse_motion is not None):
             warm_coarse = self._result.coarse_motion
         self._result = register(iref, imov, self.config,
-                                initial_coarse_motion=warm_coarse)
+                                initial_coarse_motion=warm_coarse, device=self.device)
         if self.verbose:
             for t in self._result.traces:
                 n = t.iterations

@@ -15,7 +15,11 @@ import numpy as np
 import torch
 
 from opticalflow2d_tpu_torch.config import CompatFlags, Method, MotionAccumulation, RegConfig
-from opticalflow2d_tpu_torch.engine.registration import LevelTrace, RegistrationResult
+from opticalflow2d_tpu_torch.engine.registration import (
+    LevelTrace,
+    RegistrationResult,
+    resolve_device,
+)
 
 # Knobs of the JAX config that only the TPU needs.
 _TPU_ONLY = ("use_pallas", "warp_halo", "warp_halo_outer", "warp_halo_auto", "dct_impl",
@@ -54,10 +58,12 @@ def result_to_numpy(result) -> RegistrationResult:
     )
 
 
-def result_from_numpy(result, device: torch.device | str = "cpu",
+def result_from_numpy(result, device: torch.device | str | None = None,
                       dtype: torch.dtype = torch.float32) -> RegistrationResult:
     """The port's ``RegistrationResult`` from one with numpy (or JAX)
-    arrays, with the fields on ``device``; trace errors stay on the CPU."""
+    arrays, with the fields on ``device`` (``None`` means CUDA, ``"cpu"``
+    the CPU); trace errors stay on the CPU."""
+    device = resolve_device(device)
 
     def field(x):
         return None if x is None else torch.tensor(np.asarray(x), dtype=dtype, device=device)

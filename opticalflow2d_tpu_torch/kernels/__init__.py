@@ -6,7 +6,9 @@ tensor checks it and launches its kernel or raises. ``LAUNCHES`` counts the
 kernel launches per wrapper, so a run can show that it went through them.
 """
 
-LAUNCHES = {"diffusion_block": 0, "diffusion_step": 0, "warp2d": 0, "compose": 0}
+LAUNCHES = {"diffusion_block": 0, "diffusion_step": 0, "warp2d": 0, "compose": 0,
+            "logger_norms": 0, "demons_onepass": 0, "demons_correspondence": 0,
+            "compose_smooth": 0}
 
 
 def reset_launches() -> None:

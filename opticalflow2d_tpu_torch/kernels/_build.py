@@ -1,9 +1,10 @@
 """Build the CUDA kernels on first use and load them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``, one process per
+source, all started together, and the objects are linked into one shared
 library with a plain C interface, under ``build/kernels/`` at the repository
-root. The file name carries a hash of the sources and flags, so a changed
-source builds anew and an unchanged one is loaded as it is. ``-fmad=false``
+root. The file name carries a hash of the sources, headers and flags, so a
+changed source builds anew and an unchanged one is loaded as it is. ``-fmad=false``
 keeps each kernel rounding op for op like its plain PyTorch version on the
 same device; there is no ``--use_fast_math``.
 
@@ -27,10 +28,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FA = ctypes.POINTER(ctypes.c_float)  # a host array of floats (Gaussian taps)
 # C signature of each entry point, the stream last for every launcher.
 _SIGNATURES = {
     "of2d_error_string": ((_I,), ctypes.c_char_p),
@@ -41,6 +44,16 @@ _SIGNATURES = {
     "of2d_diffusion_step": ((_P, _P, _P, _P, _P, _I, _I, _F, _P), _I),
     "of2d_warp2d": ((_P, _P, _P, _I, _I, _P), _I),
     "of2d_compose": ((_P, _P, _P, _I, _I, _P), _I),
+    "of2d_logger_norms_nblocks": ((_I, _I), _I),
+    "of2d_logger_norms": ((_P, _P, _P, _P, _I, _I, _P), _I),
+    "of2d_demons_nblocks": ((_I, _I), _I),
+    "of2d_demons_onepass_smem_bytes": ((_I,), _I),
+    "of2d_demons_onepass": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _FA, _FA, _F, _F, _I, _P),
+                            _I),
+    "of2d_demons_correspondence_smem_bytes": ((_I,), _I),
+    "of2d_demons_correspondence": ((_P, _P, _P, _P, _I, _I, _I, _FA, _F, _F, _P), _I),
+    "of2d_compose_smooth_smem_bytes": ((_I,), _I),
+    "of2d_compose_smooth": ((_P, _P, _P, _I, _I, _I, _FA, _P), _I),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -58,7 +71,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -73,12 +86,28 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        logs.append(f"== {src.name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(logs))
     os.replace(tmp, out)  # atomic: a concurrent builder never loads half a file
     return out
 
@@ -125,6 +154,16 @@ def check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_smem(need: int, device: torch.device, what: str) -> None:
+    """Raise unless a thread block of ``need`` bytes of shared memory fits
+    the card of ``device``."""
+    have = load().of2d_max_smem_optin(device.index if device.index is not None
+                                      else torch.cuda.current_device())
+    if need > have:
+        raise ValueError(f"{what} needs {need} B of shared memory per thread block; "
+                         f"this card allows {have} B")
 
 
 def f32(x: float) -> float:

@@ -58,12 +58,8 @@ def diffusion_block(u: torch.Tensor, g: torch.Tensor, alpha: float,
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     lib = _build.load()
-    need = lib.of2d_diffusion_block_smem_bytes(k)
-    have = lib.of2d_max_smem_optin(u.device.index)
-    if need > have:
-        raise ValueError(
-            f"diffusion block with k={k} needs {need} B of shared memory per "
-            f"thread block; this card allows {have} B. Use a smaller block_k.")
+    _build.check_smem(lib.of2d_diffusion_block_smem_bytes(k), u.device,
+                      f"a diffusion block with k={k} (use a smaller block_k)")
     nblocks = lib.of2d_diffusion_block_nblocks(nx, ny)
     out = torch.empty_like(u)
     partials = torch.empty((nblocks, k, 2), dtype=u.dtype, device=u.device)

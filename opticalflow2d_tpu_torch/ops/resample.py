@@ -36,8 +36,15 @@ def downsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tens
     fx = nx_in // nx_out
     fy = ny_in // ny_out
     cropped = image[..., : nx_out * fx, : ny_out * fy]
-    shaped = cropped.reshape(*cropped.shape[:-2], nx_out, fx, ny_out, fy)
-    return shaped.mean(dim=(-3, -1))
+    # The patch sum is added in a fixed order (not a reduction, whose order
+    # differs between devices), so a level rounds alike on the CPU and the
+    # GPU: a run on either device sees the same pyramid.
+    total = None
+    for a in range(fx):
+        for b in range(fy):
+            term = cropped[..., a::fx, b::fy]
+            total = term if total is None else total + term
+    return total / (fx * fy)
 
 
 def upsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tensor:

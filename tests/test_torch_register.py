@@ -54,7 +54,7 @@ def test_register_matches_jax(shape, niter):
     iref, imov = make_pair(*shape, shift=SHIFT)
     jcfg, tcfg = _configs(niter)
     want = J.register(iref, imov, jcfg)
-    got = T.register(tt(iref), tt(imov), tcfg)
+    got = T.register(tt(iref), tt(imov), tcfg, device="cpu")
     _assert_same_run(got, want)
     assert got.motion.dtype == torch.float32 and got.motion.device.type == "cpu"
     assert_close(got.coarse_motion, want.coarse_motion, MOTION_TOL)
@@ -67,7 +67,7 @@ def test_register_matches_jax_pallas_interpret():
     jcfg, tcfg = _configs((120, 120), use_pallas=True)
     with pltpu.force_tpu_interpret_mode():
         want = J.register(iref, imov, jcfg)
-    _assert_same_run(T.register(iref, imov, tcfg), want)
+    _assert_same_run(T.register(iref, imov, tcfg, device="cpu"), want)
 
 
 @pytest.mark.parametrize("block_k", [1, 3, 16])
@@ -77,8 +77,8 @@ def test_block_depth_does_not_change_the_result(block_k):
     iref, imov = make_pair(64, 48, shift=SHIFT)
     base = T.RegConfig(method=T.Method.DIFFUSION, niter=(120, 120), nscales=1,
                        nrefine=2, alpha=0.1)
-    want = T.register(iref, imov, base)
-    got = T.register(iref, imov, dataclasses.replace(base, block_k=block_k))
+    want = T.register(iref, imov, base, device="cpu")
+    got = T.register(iref, imov, dataclasses.replace(base, block_k=block_k), device="cpu")
     assert [t.iterations for t in got.traces] == [t.iterations for t in want.traces]
     assert torch.equal(got.motion, want.motion)
 
@@ -107,7 +107,7 @@ def test_persistent_motion_session_matches_jax():
     iref, imov = make_pair(64, 48, shift=SHIFT)
     jcfg, _ = _configs(NITER_CAP)
     ts = T.OpticalFlow2d((64, 48), list(NITER_CAP), 1, T.Method.DIFFUSION, [0.1], 2,
-                         compat=T.CompatFlags(persistent_motion=True))
+                         device="cpu", compat=T.CompatFlags(persistent_motion=True))
     want = J.register(iref, imov, jcfg)
     _assert_same_run(ts.register(iref, imov), want)
     want = J.register(iref, imov, jcfg, initial_coarse_motion=want.coarse_motion)
@@ -124,12 +124,13 @@ def test_initial_motion_and_scale_range_match_jax(rng):
     jcfg, tcfg = _configs(NITER_CAP)
     u0 = rng.uniform(-0.5, 0.5, (2, 64, 48)).astype(np.float32)
     want_c = J.register(iref, imov, jcfg, initial_motion=u0, stop_scale=1)
-    got_c = T.register(iref, imov, tcfg, initial_motion=u0, stop_scale=1)
+    got_c = T.register(iref, imov, tcfg, initial_motion=u0, stop_scale=1, device="cpu")
     _assert_same_run(got_c, want_c)
     assert [t.scale for t in got_c.traces] == [1, 1]
-    seed = result_from_numpy(want_c)  # the JAX coarse run seeds the port
+    seed = result_from_numpy(want_c, device="cpu")  # the JAX coarse run seeds the port
     _assert_same_run(
-        T.register(iref, imov, tcfg, initial_motion=seed.motion, start_scale=0),
+        T.register(iref, imov, tcfg, initial_motion=seed.motion, start_scale=0,
+                   device="cpu"),
         J.register(iref, imov, jcfg, initial_motion=want_c.motion, start_scale=0))
 
 
@@ -142,19 +143,20 @@ def test_register_validates_like_jax():
                {"initial_motion": np.zeros((2, 32, 24)),
                 "initial_coarse_motion": np.zeros((2, 16, 12))}):
         with pytest.raises(ValueError):
-            T.register(iref, imov, cfg, **kw)
+            T.register(iref, imov, cfg, device="cpu", **kw)
     with pytest.raises(ValueError):
-        T.register(iref, imov[:, :20], cfg)
+        T.register(iref, imov[:, :20], cfg, device="cpu")
     with pytest.raises(ValueError):
-        T.register(iref, imov, dataclasses.replace(cfg, nscales=4, niter=(5,) * 5))
+        T.register(iref, imov, dataclasses.replace(cfg, nscales=4, niter=(5,) * 5),
+                   device="cpu")
 
 
-@pytest.mark.parametrize("method", [m for m in T.Method if m != T.Method.DIFFUSION])
+@pytest.mark.parametrize("method", [T.Method.CURVATURE, T.Method.ELASTIC, T.Method.FLUID])
 def test_other_families_are_not_ported_yet(method):
     iref, imov = make_pair(16, 16)
     cfg = T.RegConfig(method=method, niter=(3,))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.register(iref, imov, cfg)
+        T.register(iref, imov, cfg, device="cpu")
 
 
 def test_config_from_jax_round_trip():
@@ -182,20 +184,21 @@ def test_result_numpy_round_trip_seeds_jax():
     continuation, as a JAX result seeds the port's."""
     iref, imov = make_pair(64, 48, shift=SHIFT)
     jcfg, tcfg = _configs(NITER_CAP)
-    got = T.register(iref, imov, tcfg)
+    got = T.register(iref, imov, tcfg, device="cpu")
     as_np = result_to_numpy(got)
     assert isinstance(as_np.motion, np.ndarray) and as_np.traces[0].iterations == 30
-    back = result_from_numpy(as_np)
+    back = result_from_numpy(as_np, device="cpu")
     assert torch.equal(back.motion, got.motion)
     assert torch.equal(back.coarse_motion, got.coarse_motion)
     _assert_same_run(
-        T.register(iref, imov, tcfg, initial_coarse_motion=got.coarse_motion),
+        T.register(iref, imov, tcfg, initial_coarse_motion=got.coarse_motion, device="cpu"),
         J.register(iref, imov, jcfg, initial_coarse_motion=as_np.coarse_motion))
 
 
 def test_verbose_session_prints_banner_and_iterations(capsys):
     iref, imov = make_pair(32, 24, shift=SHIFT)
-    ts = T.OpticalFlow2d((32, 24), [12], 0, T.Method.DIFFUSION, [0.1], verbose=True)
+    ts = T.OpticalFlow2d((32, 24), [12], 0, T.Method.DIFFUSION, [0.1], verbose=True,
+                         device="cpu")
     ts.register(iref, imov)
     out = capsys.readouterr().out
     assert "PyTorch implementation" in out and "alpha:           0.1" in out
