@@ -9,27 +9,40 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    (one ``nvcc`` per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a ragged one (fields <= 1e-6 max-abs, Logger sums
-   <= 1e-5 relative): the diffusion kernels, warp and compose with
-   displacements up to +-40 px, the Logger norms, and the three demons
-   kernels at kernelwidth 5 and 11 (the one-pass kernel by composition and
-   by addition) with small displacements and with ones that send samples
-   out of bounds.
-3. The main paths through the session API on a 4096^2 pair, each with the
-   launch counts set to 0 just before it and read just after:
-   a. diffusion, 5 levels (SSD reduction >= 0.9, finite motion). Five
-      levels put the coarsest at 256^2, where the 24 px shift is 1.5 px;
-      with three levels every level stops at the 400-iteration cap and the
-      SSD reduction stays near 0.87;
+   <= 1e-5 relative, max |R|^2 and the minimum Jacobian determinant
+   <= 1e-6 relative): the diffusion kernels, warp and compose with
+   displacements up to +-40 px, the Logger norms, the three demons kernels
+   at kernelwidth 5 and 11 (the one-pass kernel by composition and by
+   addition) with small displacements and with ones that send samples out
+   of bounds, the elastic block at k = 1, 2, 4 with either stencil, the
+   fluid iteration with either stencil and either maxabs with a nonzero
+   velocity, and the fluid metrics on a field of up to 3 px whose
+   Jacobian determinant falls below 0.5.
+3. The main paths through the session API at 4096^2, each with the launch
+   counts set to 0 just before it and read just after:
+   a. diffusion on a pair of three blobs, 5 levels (SSD reduction >= 0.9,
+      finite motion). Five levels put the coarsest at 256^2, where the
+      24 px shift is 1.5 px; with three levels every level stops at the
+      400-iteration cap and the SSD reduction stays near 0.87;
    b. Thirion demons with the default parameters (the one-pass kernel);
    c. diffeomorphic demons with sigma_i = 0.25, sigma_x = 1.0, where the
       exp map is not the identity (correspondence kernel, squarings on the
-      compose kernel, compose+smooth kernel, Logger norms).
-   Demons needs SSD reduction >= 0.9 and a finite motion too; the phase
-   prints iterations, wall time, host reads per level and launches.
-4. Profile of run 3c: the device's busy share and the host syncs.
+      compose kernel, compose+smooth kernel, Logger norms);
+   d. elastic [0.5, 0] on the tiled pair, 3 levels (the elastic block);
+   e. fluid [0.25, 0] on the tiled pair, 3 levels (the fluid iteration,
+      the fluid metrics, compose and warp for the regrids). It must
+      regrid at least once; if it does not, a second run at regrid
+      threshold 0.95 drives the regrid branch.
+   Every path needs SSD reduction >= 0.9 and a finite motion; the phase
+   prints iterations, regrids, wall time, host reads per level and
+   launches. The tiled pair keeps its sigma = 6 px blobs at every size;
+   the three-blob pair's widths scale with n, which leaves fluid's
+   increment so small at 512^2 and above that every step is skipped.
+   Three levels put the coarsest at 1024^2, where the blobs are 1.5 px.
+4. Profiles of runs 3c and 3e: the device's busy share and the host syncs.
 5. Slice parity at 512^2 for each path: the CPU (plain versions) against
-   the GPU (kernels), motion <= 1e-5 px and equal iteration counts at
-   every level.
+   the GPU (kernels), motion <= 1e-5 px and equal iteration and regrid
+   counts at every level.
 6. Times at 4096^2: median of 20 CUDA-event-timed runs of 10 calls each,
    of each kernel and of its plain version, and its bound.
 
@@ -58,7 +71,10 @@ from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block, diffusion_block_ref, stack_derivs)
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
     diffusion_step_fused, diffusion_step_ref)
-from opticalflow2d_tpu_torch.kernels.logger_norms import logger_norms, logger_norms_ref
+from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block, elastic_block_ref
+from opticalflow2d_tpu_torch.kernels.fluid_fused import fluid_iter, fluid_iter_ref
+from opticalflow2d_tpu_torch.kernels.logger_norms import (
+    fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_ref)
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
     compose, compose_ref, warp2d, warp2d_ref)
 from opticalflow2d_tpu_torch.metrics import ssd_reduction
@@ -67,6 +83,7 @@ from opticalflow2d_tpu_torch.solvers.demons import demons_route
 
 FIELD_TOL = 1e-6      # kernel vs plain version, max-abs
 SUMS_RTOL = 1e-5      # Logger sums, relative
+SCALAR_RTOL = 1e-6    # max |R|^2 and the minimum Jacobian determinant, relative
 PARITY_TOL = 1e-5     # GPU vs CPU motion, px
 SSD_BAR = 0.9
 N_MAIN = 4096
@@ -74,17 +91,25 @@ N_PARITY = 512
 ALPHA = 0.1
 NREFINE = 2
 MAIN_NSCALES = 4
+TILED_NSCALES = 2  # the elastic and fluid paths: coarsest level 1024^2
 PARITY_NSCALES = 2
 NITER = 400  # at every level
 DEMONS_PARITY_NITER = 200  # at every level of the CPU-timed demons parity runs
 SEED = 0
 KERNEL_SHAPES = ((4096, 4096), (2048, 2048), (1000, 777))
 
-# The main paths: (name, method, regparams).
+ELASTIC = (0.5, 0.0, 0.66)  # mu, lambda, omega of the elastic path and the kernel checks
+FLUID = (0.25, 0.0, 0.66)
+REGRID_FALLBACK = 0.95  # regrid threshold of the second fluid run, if the first has none
+
+# The main paths: (name, method, regparams, pair, nscales).
 PATHS = (
-    ("diffusion", Method.DIFFUSION, [ALPHA]),
-    ("thirion", Method.THIRIONS_DEMONS, [1.0, 0.25, 2.0, 2.0, 5, 0]),
-    ("diffeomorphic", Method.DIFFEOMORPHIC_DEMONS, [0.25, 1.0, 2.0, 2.0, 5]),
+    ("diffusion", Method.DIFFUSION, [ALPHA], "blob", MAIN_NSCALES),
+    ("thirion", Method.THIRIONS_DEMONS, [1.0, 0.25, 2.0, 2.0, 5, 0], "blob", MAIN_NSCALES),
+    ("diffeomorphic", Method.DIFFEOMORPHIC_DEMONS, [0.25, 1.0, 2.0, 2.0, 5], "blob",
+     MAIN_NSCALES),
+    ("elastic", Method.ELASTIC, [0.5, 0.0], "tiled", TILED_NSCALES),
+    ("fluid", Method.FLUID, [0.25, 0.0], "tiled", TILED_NSCALES),
 )
 
 KERNELS = {
@@ -104,6 +129,12 @@ KERNELS = {
                               "opticalflow2d_tpu/pallas_kernels/demons_fused.py:401"),
     "compose_smooth": ("cuda", "opticalflow2d_tpu_torch/csrc/demons_fused.cu",
                        "opticalflow2d_tpu/pallas_kernels/demons_fused.py:481"),
+    "elastic_block": ("cuda", "opticalflow2d_tpu_torch/csrc/elastic_block.cu",
+                      "opticalflow2d_tpu/pallas_kernels/elastic_block.py:206"),
+    "fluid_iter": ("cuda", "opticalflow2d_tpu_torch/csrc/fluid_iter.cu",
+                   "opticalflow2d_tpu/pallas_kernels/fluid_fused.py:188"),
+    "fluid_metrics": ("cuda", "opticalflow2d_tpu_torch/csrc/logger_norms.cu",
+                      "opticalflow2d_tpu/pallas_kernels/logger_norms.py:129"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
@@ -114,13 +145,19 @@ KW = 5  # the demons kernelwidth of the main paths
 # Per output pixel at the main paths' settings: float32 planes each kernel
 # must read and write once, and the float operations it does on them
 # (interior counts, halo recomputation not included). B1 runs k = 8 steps
-# of 33 operations; a k-tap separable Gaussian of two channels is 8k.
+# of 33 operations; a k-tap separable Gaussian of two channels is 8k. An
+# elastic iteration is the force (6), two SOR candidates (32) and the
+# Logger sums (12); B6 runs k = 4 of them. The fluid iteration adds the
+# material derivative and max |R|^2 (20) to the force and candidates; the
+# fluid metrics are the Logger sums and the determinant with its minimum.
+ELASTIC_K = 4
 PLANES = {"diffusion_block": 7, "diffusion_step": 7, "warp2d": 4, "compose": 6,
           "logger_norms": 4, "demons_onepass": 6, "demons_correspondence": 6,
-          "compose_smooth": 6}
+          "compose_smooth": 6, "elastic_block": 7, "fluid_iter": 11, "fluid_metrics": 4}
 OPS = {"diffusion_block": 8 * 33, "diffusion_step": 21, "warp2d": 25, "compose": 36,
        "logger_norms": 12, "demons_onepass": 93 + 16 * KW,
-       "demons_correspondence": 45 + 8 * KW, "compose_smooth": 36 + 8 * KW}
+       "demons_correspondence": 45 + 8 * KW, "compose_smooth": 36 + 8 * KW,
+       "elastic_block": ELASTIC_K * 50, "fluid_iter": 58, "fluid_metrics": 26}
 
 
 def emit(obj) -> None:
@@ -147,6 +184,25 @@ def blob_pair(n: int):
         return g.astype(np.float32)
 
     return img(0.0, 0.0), img(1.5 * n / 256, -0.8 * n / 256)
+
+
+def tiled_pair(n: int):
+    """Gaussian blobs of sigma = 6 px on a 32 px grid, amplitudes 0.3-1.0
+    from the seed; the moving image is shifted by (1.5, -0.8) px. Unlike
+    ``blob_pair``, the features keep their size at every n, so the image
+    gradients, the force and the fluid increment do too. The sum of the
+    blobs is separable per blob: ``Gx^T A Gy``."""
+    sigma, step = 6.0, 32
+    centers = np.arange(step // 2, n, step, dtype=np.float64)
+    amp = np.random.default_rng(SEED).uniform(0.3, 1.0, (len(centers), len(centers)))
+    coords = np.arange(n, dtype=np.float64)
+
+    def img(ox, oy):
+        gx = np.exp(-((coords[None, :] - ox - centers[:, None]) ** 2) / (2 * sigma ** 2))
+        gy = np.exp(-((coords[None, :] - oy - centers[:, None]) ** 2) / (2 * sigma ** 2))
+        return (gx.T @ amp @ gy).astype(np.float32)
+
+    return img(0.0, 0.0), img(1.5, -0.8)
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -255,24 +311,75 @@ def phase_kernels(dev) -> dict:
                       demons_correspondence_ref(*args), shape, kw=kw, u=name)
                 check(err, "compose_smooth", compose_smooth(u_total, field, 2.0, kw),
                       compose_smooth_ref(u_total, field, 2.0, kw), shape, kw=kw, c=name)
+
+        # Elastic and fluid: a field of up to 1 px and a nonzero velocity.
+        for k in (1, 2, ELASTIC_K):
+            for ref_stencil in (True, False):
+                args = (small, g, *ELASTIC, ref_stencil, k)
+                check(err, "elastic_block", elastic_block(*args), elastic_block_ref(*args),
+                      shape, k=k, reference_stencil=ref_stencil)
+        vel = (torch.tanh(u.flip(1)) * 0.3).contiguous()
+        for ref_stencil in (True, False):
+            for bug in (False, True):
+                args = (small, vel, g, *FLUID, ref_stencil, bug)
+                (v, r, m), (v_ref, r_ref, m_ref) = fluid_iter(*args), fluid_iter_ref(*args)
+                check(err, "fluid_iter", v, v_ref, shape, out="vel", reference_stencil=ref_stencil,
+                      maxabs_bug=bug)
+                check(err, "fluid_iter", r, r_ref, shape, out="R", reference_stencil=ref_stencil,
+                      maxabs_bug=bug)
+                check_scalar("fluid_iter", m, m_ref, shape, out="max|R|^2",
+                             reference_stencil=ref_stencil, maxabs_bug=bug)
+        # Up to 3 px of noise: the Jacobian determinant goes below 0.5.
+        wide = (torch.tanh(u) * 3.0).contiguous()
+        prev = (small * 0.8).contiguous()
+        for name, field in (("small", small), ("wide", wide)):
+            got, want = fluid_metrics(field, prev), fluid_metrics_ref(field, prev)
+            torch.cuda.synchronize()
+            e = rel_err(got[:2], want[:2])
+            emit({"phase": "kernels", "kernel": "fluid_metrics", "shape": list(shape), "u": name,
+                  "sums_rel_err": e})
+            require(e <= SUMS_RTOL, f"fluid_metrics {shape} {name}: sums {e}")
+            check_scalar("fluid_metrics", got[2], want[2], shape, out="jac_min", u=name)
+            err["fluid_metrics"] = max(err["fluid_metrics"], max_abs(got, want))
+        require(float(want[2]) < 0.5, f"fluid_metrics {shape}: jac_min {float(want[2])} >= 0.5")
     return err
 
 
-def host_reads_per_iteration(method: Method, regparams) -> int:
-    """Device-to-host reads one iteration of a path makes: the Logger sums,
-    plus the exp map's maxabs on the two-kernel demons route (diffusion
-    reads once a block of iterations)."""
+def check_scalar(name: str, got: torch.Tensor, want: torch.Tensor, shape, **info) -> None:
+    """Hold a kernel's scalar (max |R|^2, the minimum Jacobian determinant)
+    against its plain version's, relatively."""
+    e = rel_err(got.reshape(1), want.reshape(1))
+    emit({"phase": "kernels", "kernel": name, "shape": list(shape), **info,
+          "value": float(got), "rel_err": e})
+    require(e <= SCALAR_RTOL, f"{name} {shape} {info}: relative error {e}")
+
+
+def host_reads(method: Method, regparams, iterations: int) -> int:
+    """Device-to-host reads a (level, refinement) of a path makes: the
+    blocked drivers read the Logger sums once a block (8 diffusion or 4
+    elastic iterations); demons once an iteration, twice on the two-kernel
+    route (the exp map's maxabs); fluid once an iteration (the Logger sums
+    and the minimum Jacobian determinant together)."""
     if method == Method.DIFFUSION:
-        return 0
+        return -(-iterations // 8)
+    if method == Method.ELASTIC:
+        return -(-iterations // ELASTIC_K)
+    if method == Method.FLUID:
+        return iterations
     route = demons_route(regparams[0], regparams[1], int(regparams[4]),
                          method == Method.DIFFEOMORPHIC_DEMONS)
-    return 2 if route == "two_kernel" else 1
+    return iterations * (2 if route == "two_kernel" else 1)
 
 
-def run_main(dev, method: Method, regparams, iref, imov):
-    sess = OpticalFlow2d((N_MAIN, N_MAIN), niter=[NITER] * (MAIN_NSCALES + 1),
-                         nscales=MAIN_NSCALES, regularisation=method, regparams=regparams,
-                         nrefine=NREFINE, device=dev)
+def pair_on(dev, pair: str, n: int):
+    iref, imov = blob_pair(n) if pair == "blob" else tiled_pair(n)
+    return torch.from_numpy(iref).to(dev), torch.from_numpy(imov).to(dev)
+
+
+def run_main(dev, method: Method, regparams, nscales: int, iref, imov, **overrides):
+    sess = OpticalFlow2d((N_MAIN, N_MAIN), niter=[NITER] * (nscales + 1),
+                         nscales=nscales, regularisation=method, regparams=regparams,
+                         nrefine=NREFINE, device=dev, **overrides)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = sess.register(iref, imov)
@@ -282,45 +389,54 @@ def run_main(dev, method: Method, regparams, iref, imov):
     return sess, res, motion, ireg, time.perf_counter() - t0
 
 
+def drive_main(dev, path: str, method: Method, regparams, nscales: int, iref, imov,
+               **overrides):
+    """One main path with the launch counts set to 0 just before it; its
+    checks, and its launches read just after."""
+    kernels.reset_launches()
+    sess, res, motion, ireg, wall = run_main(dev, method, regparams, nscales, iref, imov,
+                                             **overrides)
+    launches = dict(kernels.LAUNCHES)
+    red = float(ssd_reduction(iref, imov, res.motion))
+    finite = bool(torch.isfinite(motion).all()) and bool(torch.isfinite(ireg).all())
+    iterations = [t.iterations for t in res.traces]
+    emit({"phase": "main", "path": path, "shape": [N_MAIN, N_MAIN], "nscales": nscales,
+          "regparams": regparams, **overrides, "wall_s": wall, "iterations": iterations,
+          "regrids": [t.regrids for t in res.traces],
+          "host_reads_per_level": [host_reads(method, regparams, n) for n in iterations],
+          "ssd_reduction": red, "finite": finite, "motion_shape": list(motion.shape),
+          "mean_motion_px": [float(res.motion[c].mean()) for c in range(2)],
+          "launches": launches})
+    require(finite and tuple(motion.shape) == (N_MAIN, N_MAIN, 2),
+            f"{path}: motion not finite")
+    require(red >= SSD_BAR, f"{path}: SSD reduction {red} < {SSD_BAR}")
+    sess.close()
+    return launches, sum(t.regrids for t in res.traces)
+
+
 def phase_main(dev) -> dict:
-    iref_np, imov_np = blob_pair(N_MAIN)
-    iref = torch.from_numpy(iref_np).to(dev)
-    imov = torch.from_numpy(imov_np).to(dev)
     launches = {}
-    for path, method, regparams in PATHS:
-        kernels.reset_launches()
-        sess, res, motion, ireg, wall = run_main(dev, method, regparams, iref, imov)
-        launches[path] = dict(kernels.LAUNCHES)
-        red = float(ssd_reduction(iref, imov, res.motion))
-        finite = bool(torch.isfinite(motion).all()) and bool(torch.isfinite(ireg).all())
-        iterations = [t.iterations for t in res.traces]
-        per_it = host_reads_per_iteration(method, regparams)
-        emit({"phase": "main", "path": path, "shape": [N_MAIN, N_MAIN],
-              "regparams": regparams, "wall_s": wall, "iterations": iterations,
-              "host_reads_per_level": [-(-n // 8) if method == Method.DIFFUSION else
-                                       n * per_it for n in iterations],
-              "ssd_reduction": red, "finite": finite, "motion_shape": list(motion.shape),
-              "mean_motion_px": [float(res.motion[c].mean()) for c in range(2)],
-              "launches": launches[path]})
-        require(finite and tuple(motion.shape) == (N_MAIN, N_MAIN, 2),
-                f"{path}: motion not finite")
-        require(red >= SSD_BAR, f"{path}: SSD reduction {red} < {SSD_BAR}")
-        sess.close()
+    for path, method, regparams, pair, nscales in PATHS:
+        iref, imov = pair_on(dev, pair, N_MAIN)
+        launches[path], regrids = drive_main(dev, path, method, regparams, nscales, iref, imov)
+        if method == Method.FLUID and regrids == 0:
+            launches[f"{path}_regrid"], regrids = drive_main(
+                dev, f"{path}_regrid", method, regparams, nscales, iref, imov,
+                regrid_threshold=REGRID_FALLBACK)
+            require(regrids > 0, f"{path}: no regrid even at threshold {REGRID_FALLBACK}")
     return launches
 
 
-def phase_profile(dev) -> None:
-    """torch.profiler over the diffeomorphic 4096^2 run (a warm repeat):
-    device kernel time against the wall, and the host syncs."""
+def phase_profile(dev, path: str) -> None:
+    """torch.profiler over a 4096^2 main path (a warm repeat): device kernel
+    time against the wall, and the host syncs."""
     from torch.profiler import ProfilerActivity, profile
 
-    iref_np, imov_np = blob_pair(N_MAIN)
-    iref = torch.from_numpy(iref_np).to(dev)
-    imov = torch.from_numpy(imov_np).to(dev)
-    _, method, regparams = PATHS[2]
+    _, method, regparams, pair, nscales = next(p for p in PATHS if p[0] == path)
+    iref, imov = pair_on(dev, pair, N_MAIN)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, res, _, _, wall = run_main(dev, method, regparams, iref, imov)
+        _, res, _, _, wall = run_main(dev, method, regparams, nscales, iref, imov)
         profiled_wall = time.perf_counter() - t0
     rows = prof.key_averages()
     device_us = sum(r.self_device_time_total for r in rows if r.device_type.name == "CUDA")
@@ -329,19 +445,21 @@ def phase_profile(dev) -> None:
     syncs = sum(r.count for r in rows if r.key in ("cudaStreamSynchronize",
                                                    "cudaDeviceSynchronize"))
     iterations = sum(t.iterations for t in res.traces)
-    emit({"phase": "profile", "path": "diffeomorphic", "wall_s": profiled_wall,
+    emit({"phase": "profile", "path": path, "wall_s": profiled_wall,
           "device_ms": device_us / 1e3, "busy_share": device_us / 1e6 / profiled_wall,
-          "iterations": iterations, "stream_syncs": syncs,
+          "iterations": iterations, "regrids": sum(t.regrids for t in res.traces),
+          "stream_syncs": syncs,
           "syncs_per_iteration": syncs / iterations,
           "top": [{"name": r.key[:60], "ms": r.self_device_time_total / 1e3,
                    "count": r.count} for r in top]})
 
 
 def phase_parity(dev) -> dict:
-    iref, imov = blob_pair(N_PARITY)
     launches = {}
-    for path, method, regparams in PATHS:
-        niter = NITER if method == Method.DIFFUSION else DEMONS_PARITY_NITER
+    for path, method, regparams, pair, _ in PATHS:
+        iref, imov = blob_pair(N_PARITY) if pair == "blob" else tiled_pair(N_PARITY)
+        demons = method in (Method.THIRIONS_DEMONS, Method.DIFFEOMORPHIC_DEMONS)
+        niter = DEMONS_PARITY_NITER if demons else NITER
         cfg = RegConfig.from_regparams(method, [niter] * (PARITY_NSCALES + 1),
                                        PARITY_NSCALES, regparams, NREFINE)
         t0 = time.perf_counter()
@@ -354,15 +472,19 @@ def phase_parity(dev) -> dict:
         e = max_abs(gpu.motion.cpu(), cpu.motion)
         it_cpu = [t.iterations for t in cpu.traces]
         it_gpu = [t.iterations for t in gpu.traces]
+        rg_cpu = [t.regrids for t in cpu.traces]
+        rg_gpu = [t.regrids for t in gpu.traces]
         emit({"phase": "parity", "path": path, "shape": [N_PARITY, N_PARITY],
               "niter": niter, "max_abs_err_px": e, "iterations_cpu": it_cpu,
-              "iterations_gpu": it_gpu, "cpu_s": cpu_s,
+              "iterations_gpu": it_gpu, "regrids_cpu": rg_cpu, "regrids_gpu": rg_gpu,
+              "cpu_s": cpu_s,
               "ssd_reduction_gpu": float(ssd_reduction(gpu.motion.new_tensor(iref),
                                                        gpu.motion.new_tensor(imov),
                                                        gpu.motion)),
               "launches": launches[path]})
         require(e <= PARITY_TOL, f"{path}: GPU vs CPU motion differs by {e} px")
         require(it_cpu == it_gpu, f"{path}: iterations differ: {it_cpu} vs {it_gpu}")
+        require(rg_cpu == rg_gpu, f"{path}: regrids differ: {rg_cpu} vs {rg_gpu}")
     return launches
 
 
@@ -408,6 +530,8 @@ def phase_times(dev) -> dict:
     k = RegConfig(method=Method.DIFFUSION, niter=(1,)).block_k
     onepass_args = (imov, iref, v, 1.0, 0.25, 2.0, 2.0, KW, False, True)
     corr_args = (imov, iref, v, 0.25, 1.0, 2.0, KW)
+    elastic_args = (v, g, *ELASTIC, True, ELASTIC_K)
+    fluid_args = (v, (v.flip(1) * 0.5).contiguous(), g, *FLUID, True, False)
     pairs = {
         "diffusion_block": (lambda: diffusion_block(u, g, ALPHA, k),
                             lambda: diffusion_block_ref(u, g, ALPHA, k)),
@@ -422,17 +546,24 @@ def phase_times(dev) -> dict:
                                   lambda: demons_correspondence_ref(*corr_args)),
         "compose_smooth": (lambda: compose_smooth(u, v, 2.0, KW),
                            lambda: compose_smooth_ref(u, v, 2.0, KW)),
+        "elastic_block": (lambda: elastic_block(*elastic_args),
+                          lambda: elastic_block_ref(*elastic_args)),
+        "fluid_iter": (lambda: fluid_iter(*fluid_args), lambda: fluid_iter_ref(*fluid_args)),
+        "fluid_metrics": (lambda: fluid_metrics(u, v), lambda: fluid_metrics_ref(u, v)),
     }
     times = {}
     for name, (kern, plain) in pairs.items():
         # No single PyTorch call computes any of these functions: grid_sample
         # has no edge renormalization and no pass-through, a conv2d no
-        # renormalized border, and no reduction gives both Logger sums.
+        # renormalized border, no reduction gives both Logger sums (nor them
+        # and the minimum Jacobian determinant), and none runs an SOR sweep
+        # or the fused fluid iteration.
         t = {"ms": median_ms(kern), "plain_ms": median_ms(plain), **bound(name, n * n),
              "library_ms": None}
         times[name] = t
         emit({"phase": "times", "kernel": name, "shape": [n, n],
               **({"k": k} if name == "diffusion_block" else {}),
+              **({"k": ELASTIC_K} if name == "elastic_block" else {}),
               **({"kernelwidth": KW} if name.startswith(("demons", "compose_")) else {}),
               **t})
     return times
@@ -444,7 +575,8 @@ def main() -> None:
     phase_build()
     err = phase_kernels(dev)
     main_launches = phase_main(dev)
-    phase_profile(dev)
+    phase_profile(dev, "diffeomorphic")
+    phase_profile(dev, "fluid")
     parity_launches = phase_parity(dev)
     times = phase_times(dev)
     launches = {name: sum(run[name] for run in main_launches.values()) for name in KERNELS}

@@ -7,7 +7,8 @@ The entry points (``register``, ``OpticalFlow2d``) run on the GPU unless
 the caller passes ``device="cpu"``; without a CUDA device they raise. On
 CUDA the hand-written kernels (``opticalflow2d_tpu_torch.kernels``) carry
 the run; on the CPU their plain PyTorch versions do. Ported so far: the
-diffusion (Horn-Schunck) registration and Thirion and diffeomorphic demons.
+diffusion (Horn-Schunck), Thirion and diffeomorphic demons, elastic
+(Navier-Lame SOR) and viscous-fluid registrations.
 """
 
 from opticalflow2d_tpu_torch.config import (

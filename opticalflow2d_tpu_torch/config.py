@@ -6,8 +6,8 @@ minus the knobs that only existed for the TPU: ``use_pallas`` (on CUDA the
 kernels always run), ``warp_halo``/``warp_halo_outer``/``warp_halo_auto``
 (the CUDA gather is exact for any displacement), ``dct_impl`` and the
 elastic tiling knobs ``pallas_block_elastic``/``pallas_block_k_elastic``
-(the elastic slice will choose its own). ``pallas_block_k`` keeps its
-meaning as ``block_k``.
+(the elastic driver blocks at every level with ``min(4, block_k)``
+iterations a pass). ``pallas_block_k`` keeps its meaning as ``block_k``.
 """
 
 from __future__ import annotations
@@ -99,9 +99,9 @@ class RegConfig:
     navier_lame_solver: str = "sor"
     dtype: str = "float32"
     compat: CompatFlags = dataclasses.field(default_factory=CompatFlags)
-    # Jacobi iterations per memory pass of the blocked diffusion kernel.
-    # The Logger stop stays exact: a stop inside a block recomputes that
-    # block's taken steps with the single-step kernel.
+    # Jacobi iterations per memory pass of the blocked diffusion kernel
+    # (the elastic kernel takes min(4, block_k)). The Logger stop stays
+    # exact: a stop inside a block recomputes that block's taken steps.
     block_k: int = 8
     # Print every iteration's relative error as the host loop reads it
     # (the reference Logger's verbose mode, src/Logger.cpp:62-79).

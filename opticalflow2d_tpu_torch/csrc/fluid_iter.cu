@@ -1,0 +1,179 @@
+// One viscous-fluid iteration's fusable part on Hopper (sm_90a): the L-SSD
+// force at the motion u, one red-black SOR sweep of the Navier-Lame system
+// on the velocity, the material derivative R = v - du/dx v_x - du/dy v_y,
+// and max |R|^2.
+//
+// Replaces: opticalflow2d_tpu/pallas_kernels/fluid_fused.py,
+//   fluid_iter_pallas (the TPU kernel, :188; body _fluid_body :55).
+// Bound on this card: device-memory bandwidth. It reads u and vel (2 planes
+//   each) and g = (gx, gy, It) (3 planes) and writes vel' and R (2 planes
+//   each): 44 B per pixel, for about 60 flops.
+// Design: each thread block owns a kSorTile x kSorTile output tile and
+//   loads u, vel and g with a halo of 2 cells into shared memory, the
+//   velocity twice (ping-pong). The red half-sweep reads one velocity
+//   buffer and writes the other, the black half writes it back
+//   (sor_stages.cuh): the black half reads red values one cell away, which
+//   read old values one cell further, so the halo of 2 keeps the tile
+//   exact. The force is pointwise in u, which is read-only. The material
+//   derivative reads u one cell away. Each block writes its max |R|^2
+//   partial; a second kernel takes the max over the blocks (exact in any
+//   order). dt = dumax / sqrt(max) and the gated Euler update stay outside,
+//   as in the TPU kernel (solvers/fluid.py).
+// Border: sweep updates only at global interior cells; the derivatives of
+//   u are one-sided at the global border (ops/grid.py::partial_x/y). Cells
+//   outside the image load as 0 and are never read by an image cell.
+// Numerics: the plain version's expressions in its order, with -fmad=false,
+//   so vel' and R round like solvers/fluid.py's plain chain on the card.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+#include "partials.cuh"
+#include "sor_stages.cuh"
+
+namespace {
+
+constexpr int kHalo = 2;
+constexpr int kExt = kSorTile + 2 * kHalo;
+constexpr int kExt2 = kExt * kExt;
+// Shared floats: u (2 planes), two velocity buffers (2 planes each), g (3
+// planes) and one max per warp.
+constexpr int kFluidSmemFloats = 9 * kExt2 + kSorThreadsX;
+
+// One-sided at the global border, central inside (ops/grid.py::partial_x).
+__device__ __forceinline__ float central(float prv, float here, float nxt, int g, int n) {
+  if (g == 0) return nxt - here;
+  if (g == n - 1) return here - prv;
+  return (nxt - prv) * 0.5f;
+}
+
+template <bool kRefStencil, bool kMaxabsBug>
+__global__ void __launch_bounds__(kSorThreads)
+fluid_iter_kernel(const float* __restrict__ u, const float* __restrict__ vel,
+                  const float* __restrict__ g, float* __restrict__ vel_out,
+                  float* __restrict__ r_out, float* __restrict__ partials, int nx, int ny,
+                  SorScalars s) {
+  extern __shared__ float smem[];
+  float* us = smem;
+  float* cur = us + 2 * kExt2;
+  float* nxt = cur + 2 * kExt2;
+  float* gs = nxt + 2 * kExt2;
+  float* warp_max = gs + 3 * kExt2;
+  const int gi0 = blockIdx.y * kSorTile - kHalo;
+  const int gj0 = blockIdx.x * kSorTile - kHalo;
+
+  load_tile(u, us, 2, nx, ny, gi0, gj0, kExt);
+  load_tile(vel, cur, 2, nx, ny, gi0, gj0, kExt);
+  load_tile(g, gs, 3, nx, ny, gi0, gj0, kExt);
+  __syncthreads();
+
+  float unused = 0.f;
+  sor_half_sweep<kRefStencil, false>(cur, nxt, us, gs, kExt, 1, kExt - 1, gi0, gj0, nx, ny, 0,
+                                     s, 0, 0, unused, unused);
+  __syncthreads();
+  sor_half_sweep<kRefStencil, false>(nxt, cur, us, gs, kExt, 2, kExt - 2, gi0, gj0, nx, ny, 1,
+                                     s, 0, 0, unused, unused);
+  __syncthreads();
+
+  const size_t n = static_cast<size_t>(nx) * ny;
+  float m = 0.f;
+  const int ty = threadIdx.x, tx = threadIdx.y;  // lane along y, warp along x
+  for (int li = kHalo + tx; li < kHalo + kSorTile; li += kSorThreadsX) {
+    const int gi = gi0 + li;
+    if (gi >= nx) break;
+    for (int lj = kHalo + ty; lj < kHalo + kSorTile; lj += kSorThreadsY) {
+      const int gj = gj0 + lj;
+      if (gj >= ny) break;
+      const int l = li * kExt + lj;
+      const float v0 = cur[l], v1 = cur[kExt2 + l];
+      float r[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float* uc = us + c * kExt2;
+        const float dudx = central(uc[l - kExt], uc[l], uc[l + kExt], gi, nx);
+        const float dudy = central(uc[l - 1], uc[l], uc[l + 1], gj, ny);
+        const float vc = c == 0 ? v0 : v1;
+        r[c] = (vc - dudx * v0) - dudy * v1;
+      }
+      const size_t p = static_cast<size_t>(gi) * ny + gj;
+      vel_out[p] = v0;
+      vel_out[n + p] = v1;
+      r_out[p] = r[0];
+      r_out[n + p] = r[1];
+      // Motion::maxabs (src/Motion.cpp:51-58); the bug sums y twice.
+      const float a = kMaxabsBug ? r[1] : r[0];
+      m = fmaxf(m, a * a + r[1] * r[1]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, off));
+  if (ty == 0) warp_max[tx] = m;
+  __syncthreads();
+  if (tx == 0 && ty == 0) {
+    float bm = warp_max[0];
+    for (int w = 1; w < kSorThreadsX; ++w) bm = fmaxf(bm, warp_max[w]);
+    partials[static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x] = bm;
+  }
+}
+
+// maxsq = max over the blocks' partials.
+__global__ void __launch_bounds__(kSumThreads)
+max_partials_kernel(const float* __restrict__ partials, float* __restrict__ maxsq,
+                    int nblocks) {
+  __shared__ float warps[kSumThreads / 32];
+  float m = 0.f;
+  for (int b = threadIdx.x; b < nblocks; b += kSumThreads) m = fmaxf(m, partials[b]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, off));
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kSumThreads / 32; ++w) m = fmaxf(m, warps[w]);
+    *maxsq = m;
+  }
+}
+
+template <bool kRefStencil, bool kMaxabsBug>
+int launch_fluid_iter(const float* u, const float* vel, const float* g, float* vel_out,
+                      float* r_out, float* partials, float* maxsq, int nx, int ny,
+                      SorScalars s, cudaStream_t stream) {
+  constexpr int smem = static_cast<int>(kFluidSmemFloats * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(fluid_iter_kernel<kRefStencil, kMaxabsBug>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(sor_tiles(ny), sor_tiles(nx));
+  fluid_iter_kernel<kRefStencil, kMaxabsBug>
+      <<<grid, dim3(kSorThreadsY, kSorThreadsX), smem, stream>>>(u, vel, g, vel_out, r_out,
+                                                                 partials, nx, ny, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  max_partials_kernel<<<1, kSumThreads, 0, stream>>>(partials, maxsq,
+                                                     static_cast<int>(grid.x * grid.y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int of2d_fluid_iter_smem_bytes() {
+  return static_cast<int>(kFluidSmemFloats * sizeof(float));
+}
+
+// u, vel [2, nx, ny], g [3, nx, ny] -> vel_out, r_out [2, nx, ny], maxsq [1];
+// partials [nblocks] (of2d_sor_nblocks) is scratch.
+extern "C" int of2d_fluid_iter(const float* u, const float* vel, const float* g,
+                               float* vel_out, float* r_out, float* partials, float* maxsq,
+                               int nx, int ny, float mu, float mpl, float omw,
+                               float inv_diag, int reference_stencil, int maxabs_bug,
+                               cudaStream_t stream) {
+  const SorScalars s{mu, mpl, omw, inv_diag};
+  if (reference_stencil)
+    return maxabs_bug ? launch_fluid_iter<true, true>(u, vel, g, vel_out, r_out, partials,
+                                                      maxsq, nx, ny, s, stream)
+                      : launch_fluid_iter<true, false>(u, vel, g, vel_out, r_out, partials,
+                                                       maxsq, nx, ny, s, stream);
+  return maxabs_bug ? launch_fluid_iter<false, true>(u, vel, g, vel_out, r_out, partials,
+                                                     maxsq, nx, ny, s, stream)
+                    : launch_fluid_iter<false, false>(u, vel, g, vel_out, r_out, partials,
+                                                      maxsq, nx, ny, s, stream);
+}

@@ -34,7 +34,8 @@ class OpticalFlow2d:
     there. ``get_motion()`` returns ``[nx, ny, 2]``, the MEX readback layout
     (``WrapperOpticalFlow2d.cpp:105-117``). Demons takes the reference's
     regparams ``[sigma_i, sigma_x, sigma_diff, sigma_fluid, kernelwidth,
-    accumulation]`` (Thirion) or the first five (diffeomorphic).
+    accumulation]`` (Thirion) or the first five (diffeomorphic); elastic
+    and fluid ``[mu, lambda(, omega)]``.
     """
 
     def __init__(

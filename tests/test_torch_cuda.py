@@ -22,7 +22,10 @@ from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block, diffusion_block_ref, stack_derivs)
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
     diffusion_step_fused, diffusion_step_ref)
-from opticalflow2d_tpu_torch.kernels.logger_norms import logger_norms, logger_norms_ref
+from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block, elastic_block_ref
+from opticalflow2d_tpu_torch.kernels.fluid_fused import fluid_iter, fluid_iter_ref
+from opticalflow2d_tpu_torch.kernels.logger_norms import (
+    fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_ref)
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
     compose, compose_ref, warp2d, warp2d_ref)
 from opticalflow2d_tpu_torch.solvers.base import derivatives
@@ -179,3 +182,82 @@ def test_register_demons_gpu_matches_cpu(cuda, method, extra):
     want = ["warp2d", "compose"] + (["demons_onepass"] if not extra else
                                     ["demons_correspondence", "compose_smooth", "logger_norms"])
     assert all(kernels.LAUNCHES[name] > 0 for name in want), kernels.LAUNCHES
+
+
+def _zero_border(u):
+    u = u.clone()
+    u[:, [0, -1], :] = 0
+    u[:, :, [0, -1]] = 0
+    return u
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (4, 4), (33, 1000)])
+@pytest.mark.parametrize("k,ref_stencil", [(1, True), (2, True), (4, True), (4, False)])
+def test_elastic_block_matches_plain(cuda, shape, k, ref_stencil):
+    _, _, g, u = _inputs(*shape, cuda)
+    u = _zero_border(u * 0.5)
+    got, sums = elastic_block(u, g, 0.25, 0.1, 1.5, ref_stencil, k)
+    want, sums_ref = elastic_block_ref(u, g, 0.25, 0.1, 1.5, ref_stencil, k)
+    assert _max_abs(got, want) <= FIELD_TOL
+    np.testing.assert_allclose(npy(sums), npy(sums_ref), rtol=SUMS_RTOL)
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (4, 4), (33, 1000)])
+@pytest.mark.parametrize("ref_stencil,bug", [(True, False), (False, False), (True, True)])
+def test_fluid_iter_matches_plain(cuda, shape, ref_stencil, bug):
+    _, _, g, u = _inputs(*shape, cuda)
+    vel = _zero_border(torch.tanh(u.flip(1)) * 0.3).contiguous()
+    u = (torch.tanh(u) * 0.6).contiguous()
+    got = fluid_iter(u, vel, g, 0.25, 0.1, 1.5, ref_stencil, bug)
+    want = fluid_iter_ref(u, vel, g, 0.25, 0.1, 1.5, ref_stencil, bug)
+    assert _max_abs(got[0], want[0]) <= FIELD_TOL
+    assert _max_abs(got[1], want[1]) <= FIELD_TOL
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape,scale", [((256, 256), 3.0), ((100, 77), 0.5), ((33, 1000), 3.0)])
+def test_fluid_metrics_matches_plain(cuda, shape, scale):
+    _, _, _, u = _inputs(*shape, cuda)
+    u_new = (torch.tanh(u) * scale).contiguous()
+    u_prev = (u_new * 0.8).contiguous()
+    got, want = npy(fluid_metrics(u_new, u_prev)), npy(fluid_metrics_ref(u_new, u_prev))
+    np.testing.assert_allclose(got[:2], want[:2], rtol=SUMS_RTOL)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-6)
+    assert scale < 1 or got[2] < 0.5
+
+
+def test_elastic_block_rejects_a_tile_that_does_not_fit(cuda):
+    _, _, g, u = _inputs(32, 32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        elastic_block(u, g, 0.25, 0.1, 1.5, True, 16)
+
+
+@pytest.mark.parametrize("method,extra", [
+    (Method.ELASTIC, dict(mu=0.25, lam=0.1, omega=1.5)),
+    (Method.FLUID, dict(mu=0.25, lam=0.0, regrid_threshold=0.95)),
+])
+def test_register_elastic_and_fluid_gpu_matches_cpu(cuda, method, extra):
+    iref, imov, _, _ = _inputs(96, 64, cuda)
+    cfg = RegConfig(method=method, niter=(150, 150), nscales=1, nrefine=2, **extra)
+    cpu = register(iref, imov, cfg, device="cpu")
+    kernels.reset_launches()
+    gpu = register(iref, imov, cfg)
+    assert [t.iterations for t in gpu.traces] == [t.iterations for t in cpu.traces]
+    assert [t.regrids for t in gpu.traces] == [t.regrids for t in cpu.traces]
+    assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
+    want = (["elastic_block"] if method == Method.ELASTIC else
+            ["fluid_iter", "fluid_metrics"]) + ["warp2d", "compose"]
+    assert all(kernels.LAUNCHES[name] > 0 for name in want), kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("method", [Method.ELASTIC, Method.FLUID])
+def test_lexicographic_sweep_runs_plain_on_the_gpu(cuda, method):
+    """The lexicographic ordering has no kernel: it runs its plain version
+    on CUDA tensors and matches the CPU run."""
+    iref, imov, _, _ = _inputs(16, 12, cuda)
+    cfg = RegConfig(method=method, niter=(12,), mu=0.25, lam=0.1, omega=1.5,
+                    sor_ordering="lexicographic")
+    cpu = register(iref, imov, cfg, device="cpu")
+    gpu = register(iref, imov, cfg)
+    assert [t.iterations for t in gpu.traces] == [t.iterations for t in cpu.traces]
+    assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
