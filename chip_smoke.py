@@ -17,7 +17,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    of bounds, the elastic block at k = 1, 2, 4 with either stencil, the
    fluid iteration with either stencil and either maxabs with a nonzero
    velocity, and the fluid metrics on a field of up to 3 px whose
-   Jacobian determinant falls below 0.5.
+   Jacobian determinant falls below 0.5. The two-pass fluid kernels with
+   either stencil and either maxabs: the sweep-and-max pass, whose vel'
+   and max |R|^2 must also equal the fluid iteration's bit for bit, and
+   the Euler pass at a gate > 0 and a gate of 0. Then the fluid_16k
+   path's kernels at its own shapes past 4096, on its tiled pair, with the
+   same fields and checks: warp, compose, the fluid metrics and the three
+   fluid kernels at 16384^2 and 8192^2.
 3. The main paths through the session API at 4096^2, each with the launch
    counts set to 0 just before it and read just after:
    a. diffusion on a pair of three blobs, 5 levels (SSD reduction >= 0.9,
@@ -33,6 +39,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
       the fluid metrics, compose and warp for the regrids). It must
       regrid at least once; if it does not, a second run at regrid
       threshold 0.95 drives the regrid branch.
+   f. fluid_16k: fluid [0.25, 0] on the tiled pair at 16384^2, 3 levels,
+      through the session's route past 8192 (register_phased): the 16384^2
+      level runs the two-pass iteration (sweep and max, then the Euler
+      pass), the coarser ones the fluid iteration. Its B8 and B9 launches
+      must equal the 16384^2 level's iterations, B7's the coarser levels';
+      it prints the peak device memory. The pair is built on the card.
    Every path needs SSD reduction >= 0.9 and a finite motion; the phase
    prints iterations, regrids, wall time, host reads per level and
    launches. The tiled pair keeps its sigma = 6 px blobs at every size;
@@ -42,9 +54,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 4. Profiles of runs 3c and 3e: the device's busy share and the host syncs.
 5. Slice parity at 512^2 for each path: the CPU (plain versions) against
    the GPU (kernels), motion <= 1e-5 px and equal iteration and regrid
-   counts at every level.
+   counts at every level; and the fluid run again with every level on the
+   two-pass route (its extent lowered to 0), equal to the default GPU run
+   bit for bit, with equal counts.
 6. Times at 4096^2: median of 20 CUDA-event-timed runs of 10 calls each,
-   of each kernel and of its plain version, and its bound.
+   of each kernel and of its plain version, and its bound; and of one
+   fluid iteration by each route (B7 and the plain Euler tail; B8, the
+   gate and B9).
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -62,6 +78,7 @@ import torch
 
 from opticalflow2d_tpu_torch import Method, OpticalFlow2d, RegConfig, register
 from opticalflow2d_tpu_torch import kernels
+from opticalflow2d_tpu_torch.engine import registration
 from opticalflow2d_tpu_torch.kernels import _build
 from opticalflow2d_tpu_torch.kernels.demons_fused import (
     compose_smooth, compose_smooth_ref, demons_correspondence, demons_correspondence_ref)
@@ -72,7 +89,9 @@ from opticalflow2d_tpu_torch.kernels.diffusion_block import (
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
     diffusion_step_fused, diffusion_step_ref)
 from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block, elastic_block_ref
-from opticalflow2d_tpu_torch.kernels.fluid_fused import fluid_iter, fluid_iter_ref
+from opticalflow2d_tpu_torch.kernels.fluid_fused import (
+    fluid_euler, fluid_euler_ref, fluid_iter, fluid_iter_ref, fluid_sweep_max,
+    fluid_sweep_max_ref)
 from opticalflow2d_tpu_torch.kernels.logger_norms import (
     fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_ref)
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
@@ -80,6 +99,7 @@ from opticalflow2d_tpu_torch.kernels.warp_fused import (
 from opticalflow2d_tpu_torch.metrics import ssd_reduction
 from opticalflow2d_tpu_torch.solvers.base import derivatives
 from opticalflow2d_tpu_torch.solvers.demons import demons_route
+from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
 
 FIELD_TOL = 1e-6      # kernel vs plain version, max-abs
 SUMS_RTOL = 1e-5      # Logger sums, relative
@@ -87,6 +107,7 @@ SCALAR_RTOL = 1e-6    # max |R|^2 and the minimum Jacobian determinant, relative
 PARITY_TOL = 1e-5     # GPU vs CPU motion, px
 SSD_BAR = 0.9
 N_MAIN = 4096
+N_HUGE = 16384  # the fluid_16k path: past 8192, the two-pass fluid route
 N_PARITY = 512
 ALPHA = 0.1
 NREFINE = 2
@@ -97,6 +118,9 @@ NITER = 400  # at every level
 DEMONS_PARITY_NITER = 200  # at every level of the CPU-timed demons parity runs
 SEED = 0
 KERNEL_SHAPES = ((4096, 4096), (2048, 2048), (1000, 777))
+# The fluid_16k path's levels past 4096: 16384^2 runs B3, B5, B8 and B9,
+# 8192^2 B3, B5 and B7. At 16384^2 g's third plane starts 2^31 bytes in.
+HUGE_KERNEL_SHAPES = (N_HUGE, N_HUGE // 2)
 
 ELASTIC = (0.5, 0.0, 0.66)  # mu, lambda, omega of the elastic path and the kernel checks
 FLUID = (0.25, 0.0, 0.66)
@@ -135,6 +159,10 @@ KERNELS = {
                    "opticalflow2d_tpu/pallas_kernels/fluid_fused.py:188"),
     "fluid_metrics": ("cuda", "opticalflow2d_tpu_torch/csrc/logger_norms.cu",
                       "opticalflow2d_tpu/pallas_kernels/logger_norms.py:129"),
+    "fluid_sweep_max": ("cuda", "opticalflow2d_tpu_torch/csrc/fluid_iter.cu",
+                        "opticalflow2d_tpu/pallas_kernels/fluid_fused.py:345"),
+    "fluid_euler": ("cuda", "opticalflow2d_tpu_torch/csrc/fluid_euler.cu",
+                    "opticalflow2d_tpu/pallas_kernels/fluid_fused.py:428"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
@@ -148,16 +176,20 @@ KW = 5  # the demons kernelwidth of the main paths
 # of 33 operations; a k-tap separable Gaussian of two channels is 8k. An
 # elastic iteration is the force (6), two SOR candidates (32) and the
 # Logger sums (12); B6 runs k = 4 of them. The fluid iteration adds the
-# material derivative and max |R|^2 (20) to the force and candidates; the
-# fluid metrics are the Logger sums and the determinant with its minimum.
+# material derivative and max |R|^2 (20) to the force and candidates, as
+# does the sweep-and-max pass, which writes no R; the Euler pass is the
+# material derivative and the gated update (20); the fluid metrics are the
+# Logger sums and the determinant with its minimum.
 ELASTIC_K = 4
 PLANES = {"diffusion_block": 7, "diffusion_step": 7, "warp2d": 4, "compose": 6,
           "logger_norms": 4, "demons_onepass": 6, "demons_correspondence": 6,
-          "compose_smooth": 6, "elastic_block": 7, "fluid_iter": 11, "fluid_metrics": 4}
+          "compose_smooth": 6, "elastic_block": 7, "fluid_iter": 11, "fluid_metrics": 4,
+          "fluid_sweep_max": 9, "fluid_euler": 6}
 OPS = {"diffusion_block": 8 * 33, "diffusion_step": 21, "warp2d": 25, "compose": 36,
        "logger_norms": 12, "demons_onepass": 93 + 16 * KW,
        "demons_correspondence": 45 + 8 * KW, "compose_smooth": 36 + 8 * KW,
-       "elastic_block": ELASTIC_K * 50, "fluid_iter": 58, "fluid_metrics": 26}
+       "elastic_block": ELASTIC_K * 50, "fluid_iter": 58, "fluid_metrics": 26,
+       "fluid_sweep_max": 58, "fluid_euler": 20}
 
 
 def emit(obj) -> None:
@@ -186,21 +218,24 @@ def blob_pair(n: int):
     return img(0.0, 0.0), img(1.5 * n / 256, -0.8 * n / 256)
 
 
-def tiled_pair(n: int):
+def tiled_pair(n: int, dev=torch.device("cpu")):
     """Gaussian blobs of sigma = 6 px on a 32 px grid, amplitudes 0.3-1.0
     from the seed; the moving image is shifted by (1.5, -0.8) px. Unlike
     ``blob_pair``, the features keep their size at every n, so the image
     gradients, the force and the fluid increment do too. The sum of the
-    blobs is separable per blob: ``Gx^T A Gy``."""
+    blobs is separable per blob: ``Gx^T A Gy``, computed in float64 on
+    ``dev`` (275 GFLOP an image at 16384^2, so the card builds that one)."""
     sigma, step = 6.0, 32
-    centers = np.arange(step // 2, n, step, dtype=np.float64)
-    amp = np.random.default_rng(SEED).uniform(0.3, 1.0, (len(centers), len(centers)))
-    coords = np.arange(n, dtype=np.float64)
+    kw = dict(dtype=torch.float64, device=dev)
+    centers = torch.arange(step // 2, n, step, **kw)
+    amp = torch.from_numpy(
+        np.random.default_rng(SEED).uniform(0.3, 1.0, (len(centers), len(centers)))).to(dev)
+    coords = torch.arange(n, **kw)
 
     def img(ox, oy):
-        gx = np.exp(-((coords[None, :] - ox - centers[:, None]) ** 2) / (2 * sigma ** 2))
-        gy = np.exp(-((coords[None, :] - oy - centers[:, None]) ** 2) / (2 * sigma ** 2))
-        return (gx.T @ amp @ gy).astype(np.float32)
+        gx = torch.exp(-((coords[None, :] - ox - centers[:, None]) ** 2) / (2 * sigma ** 2))
+        gy = torch.exp(-((coords[None, :] - oy - centers[:, None]) ** 2) / (2 * sigma ** 2))
+        return (gx.T @ amp @ gy).float()
 
     return img(0.0, 0.0), img(1.5, -0.8)
 
@@ -254,38 +289,50 @@ def check(err: dict, name: str, got, want, shape, **info) -> None:
 
 
 def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version on the same CUDA inputs."""
-    rng = np.random.default_rng(SEED)
+    """Each kernel against its plain version on the same CUDA inputs: every
+    kernel at KERNEL_SHAPES on the blob pair, and the kernels of the
+    fluid_16k path at its own shapes past 4096 on its tiled pair."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     err = {name: 0.0 for name in KERNELS}
     for nx, ny in KERNEL_SHAPES:
-        shape = (nx, ny)
-        n = max(nx, ny)
-        iref, imov = blob_pair(n)
-        iref = torch.from_numpy(iref[:nx, :ny].copy()).to(dev)
-        imov = torch.from_numpy(imov[:nx, :ny].copy()).to(dev)
-        d = derivatives(iref, imov)
-        g = stack_derivs(d.grad_i, d.it)
-        u = torch.from_numpy(rng.normal(0, 2, (2, nx, ny)).astype(np.float32)).to(dev)
+        iref, imov = (x[:nx, :ny].contiguous() for x in pair_on(dev, "blob", max(nx, ny)))
+        check_shape(err, dev, gen, iref, imov, every=True)
+    for n in HUGE_KERNEL_SHAPES:
+        check_shape(err, dev, gen, *tiled_pair(n, dev), every=False)
+        torch.cuda.empty_cache()
+    return err
+
+
+def check_shape(err: dict, dev, gen: torch.Generator, iref, imov, every: bool) -> None:
+    """The kernels at the pair's shape: all of them if ``every``, else the
+    fluid path's (B3, B5, B7-B9). Fields from ``gen``; each plain version's
+    result is dropped after its check, so that 16384^2 fits."""
+    nx, ny = shape = tuple(iref.shape)
+    d = derivatives(iref, imov)
+    g = stack_derivs(d.grad_i, d.it)
+    del d
+    u = torch.randn((2, nx, ny), generator=gen, device=dev) * 2
+    if every:
         for k in (1, 5, 8):
             check(err, "diffusion_block", diffusion_block(u, g, ALPHA, k),
                   diffusion_block_ref(u, g, ALPHA, k), shape, k=k)
         check(err, "diffusion_step", diffusion_step_fused(u, g[:2], g[2], ALPHA),
               diffusion_step_ref(u, g[:2], g[2], ALPHA), shape)
 
-        # Displacements up to +-40 px: a smooth field plus noise, so that
-        # samples fall inside, on the edges and outside the grid.
-        i = torch.arange(nx, device=dev, dtype=torch.float32)[:, None] / nx
-        j = torch.arange(ny, device=dev, dtype=torch.float32)[None, :] / ny
-        smooth = torch.stack([30 * torch.sin(6 * j + 1) * torch.cos(4 * i),
-                              30 * torch.cos(5 * i + 2) * torch.sin(3 * j)])
-        noise = torch.from_numpy(rng.uniform(-10, 10, (2, nx, ny)).astype(np.float32))
-        disp = (smooth + noise.to(dev)).contiguous()
-        u_total = torch.from_numpy(rng.normal(0, 5, (2, nx, ny)).astype(np.float32)).to(dev)
-        oob = float((((i * nx + disp[0]) < 0) | ((i * nx + disp[0]) >= nx)).float().mean())
-        info = {"max_disp": float(disp.abs().max()), "oob_share_x": oob}
-        check(err, "warp2d", warp2d(imov, disp), warp2d_ref(imov, disp), shape, **info)
-        check(err, "compose", compose(u_total, disp), compose_ref(u_total, disp), shape,
-              **info)
+    # Displacements up to +-40 px: a smooth field plus noise, so that
+    # samples fall inside, on the edges and outside the grid.
+    i = torch.arange(nx, device=dev, dtype=torch.float32)[:, None] / nx
+    j = torch.arange(ny, device=dev, dtype=torch.float32)[None, :] / ny
+    disp = torch.stack([30 * torch.sin(6 * j + 1) * torch.cos(4 * i),
+                        30 * torch.cos(5 * i + 2) * torch.sin(3 * j)])
+    disp += torch.rand((2, nx, ny), generator=gen, device=dev) * 20 - 10
+    u_total = torch.randn((2, nx, ny), generator=gen, device=dev) * 5
+    oob = float((((i * nx + disp[0]) < 0) | ((i * nx + disp[0]) >= nx)).float().mean())
+    info = {"max_disp": float(disp.abs().max()), "oob_share_x": oob}
+    check(err, "warp2d", warp2d(imov, disp), warp2d_ref(imov, disp), shape, **info)
+    check(err, "compose", compose(u_total, disp), compose_ref(u_total, disp), shape, **info)
+    small = (torch.tanh(u) * 1.5).contiguous()
+    if every:
         sums = logger_norms(u_total, disp)
         sums_ref = logger_norms_ref(u_total, disp)
         torch.cuda.synchronize()
@@ -298,7 +345,6 @@ def phase_kernels(dev) -> dict:
 
         # Demons: a small field (the main path's increments) and the
         # +-40 px one.
-        small = (torch.tanh(u) * 1.5).contiguous()
         for kw in (KW, 11):
             for name, field in (("small", small), ("oob", disp)):
                 for addition in (False, True):
@@ -312,37 +358,56 @@ def phase_kernels(dev) -> dict:
                 check(err, "compose_smooth", compose_smooth(u_total, field, 2.0, kw),
                       compose_smooth_ref(u_total, field, 2.0, kw), shape, kw=kw, c=name)
 
-        # Elastic and fluid: a field of up to 1 px and a nonzero velocity.
+        # Elastic and fluid: a field of up to 1 px (and, for fluid, a
+        # nonzero velocity).
         for k in (1, 2, ELASTIC_K):
             for ref_stencil in (True, False):
                 args = (small, g, *ELASTIC, ref_stencil, k)
                 check(err, "elastic_block", elastic_block(*args), elastic_block_ref(*args),
                       shape, k=k, reference_stencil=ref_stencil)
-        vel = (torch.tanh(u.flip(1)) * 0.3).contiguous()
-        for ref_stencil in (True, False):
-            for bug in (False, True):
-                args = (small, vel, g, *FLUID, ref_stencil, bug)
-                (v, r, m), (v_ref, r_ref, m_ref) = fluid_iter(*args), fluid_iter_ref(*args)
-                check(err, "fluid_iter", v, v_ref, shape, out="vel", reference_stencil=ref_stencil,
-                      maxabs_bug=bug)
-                check(err, "fluid_iter", r, r_ref, shape, out="R", reference_stencil=ref_stencil,
-                      maxabs_bug=bug)
-                check_scalar("fluid_iter", m, m_ref, shape, out="max|R|^2",
-                             reference_stencil=ref_stencil, maxabs_bug=bug)
-        # Up to 3 px of noise: the Jacobian determinant goes below 0.5.
-        wide = (torch.tanh(u) * 3.0).contiguous()
-        prev = (small * 0.8).contiguous()
-        for name, field in (("small", small), ("wide", wide)):
-            got, want = fluid_metrics(field, prev), fluid_metrics_ref(field, prev)
-            torch.cuda.synchronize()
-            e = rel_err(got[:2], want[:2])
-            emit({"phase": "kernels", "kernel": "fluid_metrics", "shape": list(shape), "u": name,
-                  "sums_rel_err": e})
-            require(e <= SUMS_RTOL, f"fluid_metrics {shape} {name}: sums {e}")
-            check_scalar("fluid_metrics", got[2], want[2], shape, out="jac_min", u=name)
-            err["fluid_metrics"] = max(err["fluid_metrics"], max_abs(got, want))
-        require(float(want[2]) < 0.5, f"fluid_metrics {shape}: jac_min {float(want[2])} >= 0.5")
-    return err
+    del disp, u_total
+    vel = (torch.tanh(u.flip(1)) * 0.3).contiguous()
+    for ref_stencil in (True, False):
+        for bug in (False, True):
+            args = (small, vel, g, *FLUID, ref_stencil, bug)
+            v, r, m = fluid_iter(*args)
+            v_ref, r_ref, m_ref = fluid_iter_ref(*args)
+            check(err, "fluid_iter", v, v_ref, shape, out="vel", reference_stencil=ref_stencil,
+                  maxabs_bug=bug)
+            check(err, "fluid_iter", r, r_ref, shape, out="R", reference_stencil=ref_stencil,
+                  maxabs_bug=bug)
+            check_scalar("fluid_iter", m, m_ref, shape, out="max|R|^2",
+                         reference_stencil=ref_stencil, maxabs_bug=bug)
+            del r, v_ref, r_ref
+            v8, m8 = fluid_sweep_max(*args)
+            v8_ref, m8_ref = fluid_sweep_max_ref(*args)
+            check(err, "fluid_sweep_max", v8, v8_ref, shape, out="vel",
+                  reference_stencil=ref_stencil, maxabs_bug=bug)
+            check_scalar("fluid_sweep_max", m8, m8_ref, shape, out="max|R|^2",
+                         reference_stencil=ref_stencil, maxabs_bug=bug)
+            require(torch.equal(v8, v) and torch.equal(m8, m),
+                    f"fluid_sweep_max {shape}: vel' or max|R|^2 differs from fluid_iter's")
+            del v, v8, v8_ref
+    del g
+    for gate in (0.37, 0.0):
+        gate_t = torch.tensor(gate, device=dev)
+        check(err, "fluid_euler", fluid_euler(small, vel, gate_t),
+              fluid_euler_ref(small, vel, gate_t), shape, gate=gate)
+    del vel
+    # Up to 3 px of noise: the Jacobian determinant goes below 0.5.
+    wide = (torch.tanh(u) * 3.0).contiguous()
+    prev = (small * 0.8).contiguous()
+    del u
+    for name, field in (("small", small), ("wide", wide)):
+        got, want = fluid_metrics(field, prev), fluid_metrics_ref(field, prev)
+        torch.cuda.synchronize()
+        e = rel_err(got[:2], want[:2])
+        emit({"phase": "kernels", "kernel": "fluid_metrics", "shape": list(shape), "u": name,
+              "sums_rel_err": e})
+        require(e <= SUMS_RTOL, f"fluid_metrics {shape} {name}: sums {e}")
+        check_scalar("fluid_metrics", got[2], want[2], shape, out="jac_min", u=name)
+        err["fluid_metrics"] = max(err["fluid_metrics"], max_abs(got, want))
+    require(float(want[2]) < 0.5, f"fluid_metrics {shape}: jac_min {float(want[2])} >= 0.5")
 
 
 def check_scalar(name: str, got: torch.Tensor, want: torch.Tensor, shape, **info) -> None:
@@ -372,12 +437,14 @@ def host_reads(method: Method, regparams, iterations: int) -> int:
 
 
 def pair_on(dev, pair: str, n: int):
-    iref, imov = blob_pair(n) if pair == "blob" else tiled_pair(n)
-    return torch.from_numpy(iref).to(dev), torch.from_numpy(imov).to(dev)
+    if pair == "tiled":
+        return tiled_pair(n, dev)
+    return tuple(torch.from_numpy(x).to(dev) for x in blob_pair(n))
 
 
 def run_main(dev, method: Method, regparams, nscales: int, iref, imov, **overrides):
-    sess = OpticalFlow2d((N_MAIN, N_MAIN), niter=[NITER] * (nscales + 1),
+    n = iref.shape[0]
+    sess = OpticalFlow2d((n, n), niter=[NITER] * (nscales + 1),
                          nscales=nscales, regularisation=method, regparams=regparams,
                          nrefine=NREFINE, device=dev, **overrides)
     torch.cuda.synchronize()
@@ -393,37 +460,60 @@ def drive_main(dev, path: str, method: Method, regparams, nscales: int, iref, im
                **overrides):
     """One main path with the launch counts set to 0 just before it; its
     checks, and its launches read just after."""
+    n = iref.shape[0]
+    torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
     sess, res, motion, ireg, wall = run_main(dev, method, regparams, nscales, iref, imov,
                                              **overrides)
     launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
     red = float(ssd_reduction(iref, imov, res.motion))
     finite = bool(torch.isfinite(motion).all()) and bool(torch.isfinite(ireg).all())
     iterations = [t.iterations for t in res.traces]
-    emit({"phase": "main", "path": path, "shape": [N_MAIN, N_MAIN], "nscales": nscales,
+    emit({"phase": "main", "path": path, "shape": [n, n], "nscales": nscales,
           "regparams": regparams, **overrides, "wall_s": wall, "iterations": iterations,
           "regrids": [t.regrids for t in res.traces],
           "host_reads_per_level": [host_reads(method, regparams, n) for n in iterations],
           "ssd_reduction": red, "finite": finite, "motion_shape": list(motion.shape),
           "mean_motion_px": [float(res.motion[c].mean()) for c in range(2)],
-          "launches": launches})
-    require(finite and tuple(motion.shape) == (N_MAIN, N_MAIN, 2),
-            f"{path}: motion not finite")
+          "peak_memory_gib": peak / 2 ** 30, "launches": launches})
+    require(finite and tuple(motion.shape) == (n, n, 2), f"{path}: motion not finite")
     require(red >= SSD_BAR, f"{path}: SSD reduction {red} < {SSD_BAR}")
     sess.close()
-    return launches, sum(t.regrids for t in res.traces)
+    return launches, res.traces
 
 
 def phase_main(dev) -> dict:
     launches = {}
     for path, method, regparams, pair, nscales in PATHS:
         iref, imov = pair_on(dev, pair, N_MAIN)
-        launches[path], regrids = drive_main(dev, path, method, regparams, nscales, iref, imov)
-        if method == Method.FLUID and regrids == 0:
-            launches[f"{path}_regrid"], regrids = drive_main(
+        launches[path], traces = drive_main(dev, path, method, regparams, nscales, iref, imov)
+        if method == Method.FLUID and not any(t.regrids for t in traces):
+            launches[f"{path}_regrid"], traces = drive_main(
                 dev, f"{path}_regrid", method, regparams, nscales, iref, imov,
                 regrid_threshold=REGRID_FALLBACK)
-            require(regrids > 0, f"{path}: no regrid even at threshold {REGRID_FALLBACK}")
+            require(any(t.regrids for t in traces),
+                    f"{path}: no regrid even at threshold {REGRID_FALLBACK}")
+    launches["fluid_16k"] = drive_huge(dev)
+    return launches
+
+
+def drive_huge(dev) -> dict:
+    """fluid_16k: the two-pass route on the 16384^2 level, through the
+    session (register_phased past 8192)."""
+    t0 = time.perf_counter()
+    iref, imov = tiled_pair(N_HUGE, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "main", "path": "fluid_16k", "pair_s": time.perf_counter() - t0})
+    launches, traces = drive_main(dev, "fluid_16k", Method.FLUID, [0.25, 0.0], TILED_NSCALES,
+                                  iref, imov)
+    fine = sum(t.iterations for t in traces if t.scale == 0)
+    coarse = sum(t.iterations for t in traces if t.scale > 0)
+    require(fine > 0 and launches["fluid_sweep_max"] == launches["fluid_euler"] == fine,
+            f"fluid_16k: B8/B9 launches {launches['fluid_sweep_max']}/"
+            f"{launches['fluid_euler']} against {fine} iterations at {N_HUGE}^2")
+    require(launches["fluid_iter"] == coarse,
+            f"fluid_16k: B7 launches {launches['fluid_iter']} against {coarse} coarse iterations")
     return launches
 
 
@@ -457,7 +547,7 @@ def phase_profile(dev, path: str) -> None:
 def phase_parity(dev) -> dict:
     launches = {}
     for path, method, regparams, pair, _ in PATHS:
-        iref, imov = blob_pair(N_PARITY) if pair == "blob" else tiled_pair(N_PARITY)
+        iref, imov = pair_on(torch.device("cpu"), pair, N_PARITY)
         demons = method in (Method.THIRIONS_DEMONS, Method.DIFFEOMORPHIC_DEMONS)
         niter = DEMONS_PARITY_NITER if demons else NITER
         cfg = RegConfig.from_regparams(method, [niter] * (PARITY_NSCALES + 1),
@@ -466,7 +556,7 @@ def phase_parity(dev) -> dict:
         cpu = register(iref, imov, cfg, device="cpu")
         cpu_s = time.perf_counter() - t0
         kernels.reset_launches()
-        gpu = register(torch.from_numpy(iref).to(dev), torch.from_numpy(imov).to(dev), cfg)
+        gpu = register(iref.to(dev), imov.to(dev), cfg)
         torch.cuda.synchronize()
         launches[path] = dict(kernels.LAUNCHES)
         e = max_abs(gpu.motion.cpu(), cpu.motion)
@@ -478,13 +568,40 @@ def phase_parity(dev) -> dict:
               "niter": niter, "max_abs_err_px": e, "iterations_cpu": it_cpu,
               "iterations_gpu": it_gpu, "regrids_cpu": rg_cpu, "regrids_gpu": rg_gpu,
               "cpu_s": cpu_s,
-              "ssd_reduction_gpu": float(ssd_reduction(gpu.motion.new_tensor(iref),
-                                                       gpu.motion.new_tensor(imov),
+              "ssd_reduction_gpu": float(ssd_reduction(iref.to(dev), imov.to(dev),
                                                        gpu.motion)),
               "launches": launches[path]})
         require(e <= PARITY_TOL, f"{path}: GPU vs CPU motion differs by {e} px")
         require(it_cpu == it_gpu, f"{path}: iterations differ: {it_cpu} vs {it_gpu}")
         require(rg_cpu == rg_gpu, f"{path}: regrids differ: {rg_cpu} vs {rg_gpu}")
+        if method == Method.FLUID:
+            launches["fluid_two_pass"] = parity_two_pass(dev, iref, imov, cfg, gpu)
+    return launches
+
+
+def parity_two_pass(dev, iref, imov, cfg, want) -> dict:
+    """The fluid run with every level on the two-pass route: the route's
+    extent lowered to 0 for the call, then restored."""
+    saved = registration._DERIV_BARRIER_MIN_EXTENT
+    kernels.reset_launches()
+    registration._DERIV_BARRIER_MIN_EXTENT = 0
+    try:
+        got = register(iref.to(dev), imov.to(dev), cfg)
+    finally:
+        registration._DERIV_BARRIER_MIN_EXTENT = saved
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    iterations = [t.iterations for t in got.traces]
+    same = torch.equal(got.motion, want.motion)
+    emit({"phase": "parity", "path": "fluid_two_pass", "shape": [N_PARITY, N_PARITY],
+          "bit_equal_to_default": same, "iterations": iterations,
+          "regrids": [t.regrids for t in got.traces], "launches": launches})
+    require(same, "fluid: the two-pass route's motion differs from the default run's")
+    require(iterations == [t.iterations for t in want.traces]
+            and [t.regrids for t in got.traces] == [t.regrids for t in want.traces],
+            "fluid: the two-pass route's counts differ from the default run's")
+    require(launches["fluid_sweep_max"] == launches["fluid_euler"] == sum(iterations)
+            and launches["fluid_iter"] == 0, f"fluid two-pass launches: {launches}")
     return launches
 
 
@@ -532,6 +649,8 @@ def phase_times(dev) -> dict:
     corr_args = (imov, iref, v, 0.25, 1.0, 2.0, KW)
     elastic_args = (v, g, *ELASTIC, True, ELASTIC_K)
     fluid_args = (v, (v.flip(1) * 0.5).contiguous(), g, *FLUID, True, False)
+    swept = fluid_iter(*fluid_args)[0]
+    gate = torch.tensor(0.37, device=dev)
     pairs = {
         "diffusion_block": (lambda: diffusion_block(u, g, ALPHA, k),
                             lambda: diffusion_block_ref(u, g, ALPHA, k)),
@@ -550,14 +669,18 @@ def phase_times(dev) -> dict:
                           lambda: elastic_block_ref(*elastic_args)),
         "fluid_iter": (lambda: fluid_iter(*fluid_args), lambda: fluid_iter_ref(*fluid_args)),
         "fluid_metrics": (lambda: fluid_metrics(u, v), lambda: fluid_metrics_ref(u, v)),
+        "fluid_sweep_max": (lambda: fluid_sweep_max(*fluid_args),
+                            lambda: fluid_sweep_max_ref(*fluid_args)),
+        "fluid_euler": (lambda: fluid_euler(v, swept, gate),
+                        lambda: fluid_euler_ref(v, swept, gate)),
     }
     times = {}
     for name, (kern, plain) in pairs.items():
         # No single PyTorch call computes any of these functions: grid_sample
         # has no edge renormalization and no pass-through, a conv2d no
         # renormalized border, no reduction gives both Logger sums (nor them
-        # and the minimum Jacobian determinant), and none runs an SOR sweep
-        # or the fused fluid iteration.
+        # and the minimum Jacobian determinant), and none runs an SOR sweep,
+        # the fused fluid iteration or the fluid Euler pass.
         t = {"ms": median_ms(kern), "plain_ms": median_ms(plain), **bound(name, n * n),
              "library_ms": None}
         times[name] = t
@@ -566,6 +689,15 @@ def phase_times(dev) -> dict:
               **({"k": ELASTIC_K} if name == "elastic_block" else {}),
               **({"kernelwidth": KW} if name.startswith(("demons", "compose_")) else {}),
               **t})
+    # One fluid iteration by each route: B7 and the plain Euler tail; B8,
+    # the gate and B9 (the two routes give the same bits).
+    one = make_fluid_step(*FLUID)
+    two = make_fluid_two_pass_step(*FLUID)
+    step_args = fluid_args[:3]
+    emit({"phase": "times", "fluid_iteration": "one_pass", "shape": [n, n],
+          "ms": median_ms(lambda: one(*step_args))})
+    emit({"phase": "times", "fluid_iteration": "two_pass", "shape": [n, n],
+          "ms": median_ms(lambda: two(*step_args))})
     return times
 
 

@@ -8,7 +8,8 @@ the caller passes ``device="cpu"``; without a CUDA device they raise. On
 CUDA the hand-written kernels (``opticalflow2d_tpu_torch.kernels``) carry
 the run; on the CPU their plain PyTorch versions do. Ported so far: the
 diffusion (Horn-Schunck), Thirion and diffeomorphic demons, elastic
-(Navier-Lame SOR) and viscous-fluid registrations.
+(Navier-Lame SOR) and viscous-fluid registrations, and ``register_phased``,
+the JAX API's huge-grid entry point.
 """
 
 from opticalflow2d_tpu_torch.config import (
@@ -17,7 +18,11 @@ from opticalflow2d_tpu_torch.config import (
     MotionAccumulation,
     RegConfig,
 )
-from opticalflow2d_tpu_torch.engine.registration import RegistrationResult, register
+from opticalflow2d_tpu_torch.engine.registration import (
+    RegistrationResult,
+    register,
+    register_phased,
+)
 from opticalflow2d_tpu_torch.engine.session import OpticalFlow2d
 
 __all__ = [
@@ -26,6 +31,7 @@ __all__ = [
     "CompatFlags",
     "RegConfig",
     "register",
+    "register_phased",
     "RegistrationResult",
     "OpticalFlow2d",
 ]

@@ -1,13 +1,18 @@
 // One viscous-fluid iteration's fusable part on Hopper (sm_90a): the L-SSD
 // force at the motion u, one red-black SOR sweep of the Navier-Lame system
 // on the velocity, the material derivative R = v - du/dx v_x - du/dy v_y,
-// and max |R|^2.
+// and max |R|^2. Two kernels from one body:
+//   B7 fluid_iter writes vel' and R;
+//   B8 fluid_sweep_max writes vel' only: R stays in registers, and
+//      fluid_euler.cu (B9) recomputes it for the Euler step.
 //
 // Replaces: opticalflow2d_tpu/pallas_kernels/fluid_fused.py,
-//   fluid_iter_pallas (the TPU kernel, :188; body _fluid_body :55).
+//   fluid_iter_pallas (B7, :188) and fluid_sweep_max_pallas (B8, :345),
+//   both on the body _fluid_body (:55).
 // Bound on this card: device-memory bandwidth. It reads u and vel (2 planes
-//   each) and g = (gx, gy, It) (3 planes) and writes vel' and R (2 planes
-//   each): 44 B per pixel, for about 60 flops.
+//   each) and g = (gx, gy, It) (3 planes) and writes vel' (2 planes), and
+//   for B7 R (2 planes): 44 B per pixel for B7, 36 B for B8, for about 60
+//   flops.
 // Design: each thread block owns a kSorTile x kSorTile output tile and
 //   loads u, vel and g with a halo of 2 cells into shared memory, the
 //   velocity twice (ping-pong). The red half-sweep reads one velocity
@@ -15,20 +20,22 @@
 //   (sor_stages.cuh): the black half reads red values one cell away, which
 //   read old values one cell further, so the halo of 2 keeps the tile
 //   exact. The force is pointwise in u, which is read-only. The material
-//   derivative reads u one cell away. Each block writes its max |R|^2
-//   partial; a second kernel takes the max over the blocks (exact in any
-//   order). dt = dumax / sqrt(max) and the gated Euler update stay outside,
-//   as in the TPU kernel (solvers/fluid.py).
+//   derivative reads u one cell away (material_derivative.cuh). Each block
+//   writes its max |R|^2 partial; a second kernel takes the max over the
+//   blocks (exact in any order). dt = dumax / sqrt(max) and the gated Euler
+//   update stay outside, as in the TPU kernels (solvers/fluid.py).
 // Border: sweep updates only at global interior cells; the derivatives of
 //   u are one-sided at the global border (ops/grid.py::partial_x/y). Cells
 //   outside the image load as 0 and are never read by an image cell.
 // Numerics: the plain version's expressions in its order, with -fmad=false,
-//   so vel' and R round like solvers/fluid.py's plain chain on the card.
+//   so vel' and R round like solvers/fluid.py's plain chain on the card,
+//   and B8's max |R|^2 equals B7's bit for bit.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "material_derivative.cuh"
 #include "partials.cuh"
 #include "sor_stages.cuh"
 
@@ -41,14 +48,8 @@ constexpr int kExt2 = kExt * kExt;
 // planes) and one max per warp.
 constexpr int kFluidSmemFloats = 9 * kExt2 + kSorThreadsX;
 
-// One-sided at the global border, central inside (ops/grid.py::partial_x).
-__device__ __forceinline__ float central(float prv, float here, float nxt, int g, int n) {
-  if (g == 0) return nxt - here;
-  if (g == n - 1) return here - prv;
-  return (nxt - prv) * 0.5f;
-}
-
-template <bool kRefStencil, bool kMaxabsBug>
+// kStoreR: write R (B7); without it R is never stored (B8).
+template <bool kRefStencil, bool kMaxabsBug, bool kStoreR>
 __global__ void __launch_bounds__(kSorThreads)
 fluid_iter_kernel(const float* __restrict__ u, const float* __restrict__ vel,
                   const float* __restrict__ g, float* __restrict__ vel_out,
@@ -94,13 +95,15 @@ fluid_iter_kernel(const float* __restrict__ u, const float* __restrict__ vel,
         const float dudx = central(uc[l - kExt], uc[l], uc[l + kExt], gi, nx);
         const float dudy = central(uc[l - 1], uc[l], uc[l + 1], gj, ny);
         const float vc = c == 0 ? v0 : v1;
-        r[c] = (vc - dudx * v0) - dudy * v1;
+        r[c] = material_r(vc, v0, v1, dudx, dudy);
       }
       const size_t p = static_cast<size_t>(gi) * ny + gj;
       vel_out[p] = v0;
       vel_out[n + p] = v1;
-      r_out[p] = r[0];
-      r_out[n + p] = r[1];
+      if (kStoreR) {
+        r_out[p] = r[0];
+        r_out[n + p] = r[1];
+      }
       // Motion::maxabs (src/Motion.cpp:51-58); the bug sums y twice.
       const float a = kMaxabsBug ? r[1] : r[0];
       m = fmaxf(m, a * a + r[1] * r[1]);
@@ -134,23 +137,38 @@ max_partials_kernel(const float* __restrict__ partials, float* __restrict__ maxs
   }
 }
 
-template <bool kRefStencil, bool kMaxabsBug>
+template <bool kRefStencil, bool kMaxabsBug, bool kStoreR>
 int launch_fluid_iter(const float* u, const float* vel, const float* g, float* vel_out,
                       float* r_out, float* partials, float* maxsq, int nx, int ny,
                       SorScalars s, cudaStream_t stream) {
   constexpr int smem = static_cast<int>(kFluidSmemFloats * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(fluid_iter_kernel<kRefStencil, kMaxabsBug>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = fluid_iter_kernel<kRefStencil, kMaxabsBug, kStoreR>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(sor_tiles(ny), sor_tiles(nx));
-  fluid_iter_kernel<kRefStencil, kMaxabsBug>
-      <<<grid, dim3(kSorThreadsY, kSorThreadsX), smem, stream>>>(u, vel, g, vel_out, r_out,
-                                                                 partials, nx, ny, s);
+  kernel<<<grid, dim3(kSorThreadsY, kSorThreadsX), smem, stream>>>(u, vel, g, vel_out, r_out,
+                                                                   partials, nx, ny, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   max_partials_kernel<<<1, kSumThreads, 0, stream>>>(partials, maxsq,
                                                      static_cast<int>(grid.x * grid.y));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStoreR>
+int dispatch(const float* u, const float* vel, const float* g, float* vel_out, float* r_out,
+             float* partials, float* maxsq, int nx, int ny, SorScalars s, int reference_stencil,
+             int maxabs_bug, cudaStream_t stream) {
+  if (reference_stencil)
+    return maxabs_bug ? launch_fluid_iter<true, true, kStoreR>(u, vel, g, vel_out, r_out,
+                                                               partials, maxsq, nx, ny, s, stream)
+                      : launch_fluid_iter<true, false, kStoreR>(u, vel, g, vel_out, r_out,
+                                                                partials, maxsq, nx, ny, s, stream);
+  return maxabs_bug ? launch_fluid_iter<false, true, kStoreR>(u, vel, g, vel_out, r_out, partials,
+                                                              maxsq, nx, ny, s, stream)
+                    : launch_fluid_iter<false, false, kStoreR>(u, vel, g, vel_out, r_out,
+                                                               partials, maxsq, nx, ny, s, stream);
 }
 
 }  // namespace
@@ -159,21 +177,25 @@ extern "C" int of2d_fluid_iter_smem_bytes() {
   return static_cast<int>(kFluidSmemFloats * sizeof(float));
 }
 
-// u, vel [2, nx, ny], g [3, nx, ny] -> vel_out, r_out [2, nx, ny], maxsq [1];
-// partials [nblocks] (of2d_sor_nblocks) is scratch.
+// B7: u, vel [2, nx, ny], g [3, nx, ny] -> vel_out, r_out [2, nx, ny],
+// maxsq [1]; partials [nblocks] (of2d_sor_nblocks) is scratch.
 extern "C" int of2d_fluid_iter(const float* u, const float* vel, const float* g,
                                float* vel_out, float* r_out, float* partials, float* maxsq,
                                int nx, int ny, float mu, float mpl, float omw,
                                float inv_diag, int reference_stencil, int maxabs_bug,
                                cudaStream_t stream) {
-  const SorScalars s{mu, mpl, omw, inv_diag};
-  if (reference_stencil)
-    return maxabs_bug ? launch_fluid_iter<true, true>(u, vel, g, vel_out, r_out, partials,
-                                                      maxsq, nx, ny, s, stream)
-                      : launch_fluid_iter<true, false>(u, vel, g, vel_out, r_out, partials,
-                                                       maxsq, nx, ny, s, stream);
-  return maxabs_bug ? launch_fluid_iter<false, true>(u, vel, g, vel_out, r_out, partials,
-                                                     maxsq, nx, ny, s, stream)
-                    : launch_fluid_iter<false, false>(u, vel, g, vel_out, r_out, partials,
-                                                      maxsq, nx, ny, s, stream);
+  return dispatch<true>(u, vel, g, vel_out, r_out, partials, maxsq, nx, ny,
+                        SorScalars{mu, mpl, omw, inv_diag}, reference_stencil, maxabs_bug,
+                        stream);
+}
+
+// B8: as B7 without R: -> vel_out [2, nx, ny], maxsq [1].
+extern "C" int of2d_fluid_sweep_max(const float* u, const float* vel, const float* g,
+                                    float* vel_out, float* partials, float* maxsq, int nx,
+                                    int ny, float mu, float mpl, float omw, float inv_diag,
+                                    int reference_stencil, int maxabs_bug,
+                                    cudaStream_t stream) {
+  return dispatch<false>(u, vel, g, vel_out, nullptr, partials, maxsq, nx, ny,
+                         SorScalars{mu, mpl, omw, inv_diag}, reference_stencil, maxabs_bug,
+                         stream);
 }

@@ -42,7 +42,15 @@ from opticalflow2d_tpu_torch.ops.warp import compose, warp2d
 from opticalflow2d_tpu_torch.solvers.base import Derivatives, derivatives
 from opticalflow2d_tpu_torch.solvers.demons import make_demons_step
 from opticalflow2d_tpu_torch.solvers.elastic import elastic_step
-from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step
+from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
+
+# The JAX package's name and value (opticalflow2d_tpu/engine/registration.py:
+# 58), where it fences the derivatives from the loop at 16384 lanes. Here it
+# selects a route, not a memory barrier: a fluid level whose larger extent
+# exceeds it runs the two-pass iteration (red-black), as JAX's host-stepped
+# level loop does there, and OpticalFlow2d sends a grid past it to
+# register_phased.
+_DERIV_BARRIER_MIN_EXTENT = 8192
 
 
 class LevelTrace(NamedTuple):
@@ -172,14 +180,20 @@ def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     stop and the regrid decision. The Logger's ``prev`` is the last logged
     estimate and survives a regrid (the reference's Logger lives outside
     the regrid block, ImageRegistrationFluid.cpp:99-124); a regrid runs
-    only when the stop did not fire."""
+    only when the stop did not fire.
+
+    A level whose larger extent exceeds ``_DERIV_BARRIER_MIN_EXTENT`` runs
+    the red-black step in two passes that never store R (B8, then the gate,
+    then B9), the JAX package's huge-grid iteration; it gives the same bits
+    as the one-pass step (B7 and the plain Euler update)."""
     _require_sor(cfg)
-    step = make_fluid_step(
-        cfg.mu, cfg.lam, cfg.omega, dumax=cfg.dumax, timestep_skip=cfg.timestep_skip,
-        maxabs_bug=cfg.compat.maxabs_bug,
-        reference_stencil=cfg.compat.elastic_stencil_reference,
-        sor_ordering=cfg.sor_ordering,
-    )
+    kw = dict(dumax=cfg.dumax, timestep_skip=cfg.timestep_skip,
+              maxabs_bug=cfg.compat.maxabs_bug,
+              reference_stencil=cfg.compat.elastic_stencil_reference)
+    if max(u.shape[1:]) > _DERIV_BARRIER_MIN_EXTENT and cfg.sor_ordering == "redblack":
+        step = make_fluid_two_pass_step(cfg.mu, cfg.lam, cfg.omega, **kw)
+    else:
+        step = make_fluid_step(cfg.mu, cfg.lam, cfg.omega, sor_ordering=cfg.sor_ordering, **kw)
     n_pix = np.float32(u.shape[1] * u.shape[2])
     tol = np.float32(cfg.convergence_tol)
     threshold = np.float32(cfg.regrid_threshold)
@@ -397,9 +411,27 @@ def register(iref, imov, cfg: RegConfig, initial_motion=None,
             )
         coarse = pyramid_dims(tuple(iref.shape), cfg.nscales)[cfg.nscales]
         initial_coarse_motion = _field(initial_coarse_motion, dtype, device,
-                                       "initial_coarse_motion", (2,) + coarse)
+                                       "initial_coarse_motion (the coarsest level's field)",
+                                       (2,) + coarse)
     if initial_motion is not None:
         initial_motion = _field(initial_motion, dtype, device, "initial_motion",
                                 (2,) + tuple(iref.shape))
     return _register_impl(iref, imov, cfg, initial_motion, start_scale,
                           stop_scale, initial_coarse_motion)
+
+
+def register_phased(iref, imov, cfg: RegConfig, initial_motion=None,
+                    initial_coarse_motion=None, device=None) -> RegistrationResult:
+    """The JAX API's huge-grid entry point, with ``register``'s result.
+
+    In the JAX package it runs each pyramid phase as its own XLA program and
+    the fluid levels past 8192 host-stepped, because one program per level
+    does not compile or fit at 16384^2 on a TPU. The port's pyramid loop is
+    already phased on the host, and its fluid levels past
+    ``_DERIV_BARRIER_MIN_EXTENT`` take the two-pass iteration on their own,
+    so this is ``register`` over the whole pyramid: the same validation and
+    errors, the same warm starts (``initial_motion`` and
+    ``initial_coarse_motion`` exclude each other), the same result.
+    ``OpticalFlow2d`` calls it for a grid whose extent exceeds 8192."""
+    return register(iref, imov, cfg, initial_motion=initial_motion,
+                    initial_coarse_motion=initial_coarse_motion, device=device)

@@ -17,9 +17,11 @@ from typing import Optional, Sequence
 import torch
 
 from opticalflow2d_tpu_torch.config import Method, RegConfig
+from opticalflow2d_tpu_torch.engine import registration
 from opticalflow2d_tpu_torch.engine.registration import (
     RegistrationResult,
     register,
+    register_phased,
     resolve_device,
 )
 from opticalflow2d_tpu_torch.ops.warp import warp2d
@@ -107,8 +109,13 @@ class OpticalFlow2d:
         if (self.config.compat.persistent_motion and self._result is not None
                 and self._result.coarse_motion is not None):
             warm_coarse = self._result.coarse_motion
-        self._result = register(iref, imov, self.config,
-                                initial_coarse_motion=warm_coarse, device=self.device)
+        # A grid past 8192 goes to register_phased, as in the JAX session
+        # (opticalflow2d_tpu/engine/session.py:113-124). The extent is read
+        # through the module, so the level route and this one share it.
+        huge = max(self.dims) > registration._DERIV_BARRIER_MIN_EXTENT
+        run = register_phased if huge else register
+        self._result = run(iref, imov, self.config, initial_coarse_motion=warm_coarse,
+                           device=self.device)
         if self.verbose:
             for t in self._result.traces:
                 n = t.iterations

@@ -8,7 +8,8 @@ kernel launches per wrapper, so a run can show that it went through them.
 
 LAUNCHES = {"diffusion_block": 0, "diffusion_step": 0, "warp2d": 0, "compose": 0,
             "logger_norms": 0, "demons_onepass": 0, "demons_correspondence": 0,
-            "compose_smooth": 0, "elastic_block": 0, "fluid_iter": 0, "fluid_metrics": 0}
+            "compose_smooth": 0, "elastic_block": 0, "fluid_iter": 0, "fluid_metrics": 0,
+            "fluid_sweep_max": 0, "fluid_euler": 0}
 
 
 def reset_launches() -> None:

@@ -60,6 +60,8 @@ _SIGNATURES = {
     "of2d_elastic_block": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P), _I),
     "of2d_fluid_iter_smem_bytes": ((), _I),
     "of2d_fluid_iter": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P), _I),
+    "of2d_fluid_sweep_max": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P), _I),
+    "of2d_fluid_euler": ((_P, _P, _P, _P, _I, _I, _P), _I),
 }
 
 _lib: ctypes.CDLL | None = None

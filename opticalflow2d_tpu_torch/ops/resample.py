@@ -27,8 +27,42 @@ def pyramid_dims(dim0: Tuple[int, int], nscales: int):
     return [(int(nx / (2.0 ** s)), int(ny / (2.0 ** s))) for s in range(nscales + 1)]
 
 
+def _sequential(terms):
+    total = terms[0]
+    for t in terms[1:]:
+        total = total + t
+    return total
+
+
+def _interleaved4(terms):
+    """Four partial sums, term k into sum ``k % 4``, added pairwise."""
+    acc = [_sequential(terms[r::4]) for r in range(min(4, len(terms)))]
+    while len(acc) > 1:
+        acc = [acc[i] + acc[i + 1] if i + 1 < len(acc) else acc[i]
+               for i in range(0, len(acc), 2)]
+    return acc[0]
+
+
 def downsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tensor:
-    """Box-filter downsample ``[..., nx, ny] -> [..., nx_out, ny_out]``."""
+    """Box-filter downsample ``[..., nx, ny] -> [..., nx_out, ny_out]``.
+
+    Each patch is added as a fixed sequence of tensor adds (not a
+    reduction, whose order differs between devices), so a level rounds
+    alike on the CPU and the GPU. The sequence is the one in which the JAX
+    package's two forms round on the CPU (``opticalflow2d_tpu/ops/
+    resample.py:42-66``), found by probing XLA:
+    - extents <= 4096, ``reshape(...).mean()``: the patch row by row
+      (x offset outer, y offset inner) in one running sum; but for a 2x2
+      patch on a grid whose cropped ``ny`` is a power of two, each row's
+      pair first and then the rows;
+    - extents > 4096, the two box products: the x offsets first, one
+      running sum of the terms scaled by ``1/fx``; then the y offsets,
+      scaled by ``1/fy``, into four partial sums (offset mod 4) added
+      pairwise. Exact for 2D images at 8224x64, levels 1-3; the shapes
+      where XLA's product orders differ are listed in ROADMAP queue C.
+    Scaling by a power of two is exact, so the forms differ only in
+    the order of the adds.
+    """
     nx_in, ny_in = image.shape[-2], image.shape[-1]
     nx_out, ny_out = dimout
     if nx_out > nx_in or ny_out > ny_in:
@@ -36,14 +70,16 @@ def downsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tens
     fx = nx_in // nx_out
     fy = ny_in // ny_out
     cropped = image[..., : nx_out * fx, : ny_out * fy]
-    # The patch sum is added in a fixed order (not a reduction, whose order
-    # differs between devices), so a level rounds alike on the CPU and the
-    # GPU: a run on either device sees the same pyramid.
-    total = None
-    for a in range(fx):
-        for b in range(fy):
-            term = cropped[..., a::fx, b::fy]
-            total = term if total is None else total + term
+    c = [[cropped[..., a::fx, b::fy] for b in range(fy)] for a in range(fx)]
+    if nx_in > 4096 or ny_in > 4096:
+        sx, sy = 1.0 / fx, 1.0 / fy
+        cols = [_sequential([c[a][b] * sx for a in range(fx)]) for b in range(fy)]
+        return _interleaved4([col * sy for col in cols])
+    ny_c = ny_out * fy
+    if fx == fy == 2 and ny_c & (ny_c - 1) == 0:
+        total = _sequential([c[a][0] + c[a][1] for a in range(fx)])
+    else:
+        total = _sequential([c[a][b] for a in range(fx) for b in range(fy)])
     return total / (fx * fy)
 
 

@@ -16,6 +16,11 @@ red-black ordering); the lexicographic ordering runs the plain chain on any
 device. The tail stays on the device as plain tensor ops on 0-d tensors, so
 a step makes no host read. ``maxabs_bug=True`` reproduces the reference's
 ``Motion::maxabs`` defect, which changes the timestep sequence.
+
+``make_fluid_two_pass_step`` is the same step in two passes that never
+store R (red-black only): the sweep with ``max |R|^2``, the timestep gate
+on device scalars, then the Euler pass, which recomputes R. It gives the
+same bits as ``make_fluid_step``.
 """
 
 from __future__ import annotations
@@ -25,8 +30,19 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from opticalflow2d_tpu_torch.kernels.fluid_fused import fluid_iter, fluid_iter_ref
+from opticalflow2d_tpu_torch.kernels.fluid_fused import (
+    fluid_euler,
+    fluid_iter,
+    fluid_iter_ref,
+    fluid_sweep_max,
+)
 from opticalflow2d_tpu_torch.ops.reduce import sqrt_rounded
+
+
+def _timestep(maxsq: torch.Tensor, dumax32: float) -> torch.Tensor:
+    """``dt = dumax / max|R|``, an f32 division as JAX's: ``maxsq == 0``
+    gives ``dt = inf``, a skip."""
+    return torch.full_like(maxsq, dumax32) / sqrt_rounded(maxsq)
 
 
 def make_fluid_step(mu: float, lam: float, omega: float, dumax: float = 0.65,
@@ -47,10 +63,31 @@ def make_fluid_step(mu: float, lam: float, omega: float, dumax: float = 0.65,
         else:
             velocity, r, maxsq = fluid_iter_ref(u, velocity, g, mu, lam, omega,
                                                 reference_stencil, maxabs_bug, sor_ordering)
-        # An f32 division, as JAX's: m == 0 gives dt = inf, a skip.
-        dt = torch.full_like(maxsq, dumax32) / sqrt_rounded(maxsq)
+        dt = _timestep(maxsq, dumax32)
         do_step = dt < skip32
         u = torch.where(do_step, u + r * torch.where(do_step, dt, 0.0), u)
         return u, velocity
+
+    return step
+
+
+def make_fluid_two_pass_step(mu: float, lam: float, omega: float, dumax: float = 0.65,
+                             timestep_skip: float = 65.0, maxabs_bug: bool = False,
+                             reference_stencil: bool = True):
+    """Build the two-pass fluid step ``(u, velocity, g) -> (u, velocity)``
+    (red-black), the port of the JAX package's ``fluid_2pass`` iteration
+    (``engine/registration.py:1104-1123``): the sweep and ``max |R|^2``,
+    the gate ``where(dt < timestep_skip, dt, 0)`` (``fluid_gate``, :878),
+    the Euler pass. No host read, and R is never stored."""
+    dumax32 = float(np.float32(dumax))
+    skip32 = float(np.float32(timestep_skip))
+
+    def step(u: torch.Tensor, velocity: torch.Tensor,
+             g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        velocity, maxsq = fluid_sweep_max(u, velocity, g, mu, lam, omega, reference_stencil,
+                                          maxabs_bug)
+        dt = _timestep(maxsq, dumax32)
+        gate = torch.where(dt < skip32, dt, 0.0)
+        return fluid_euler(u, velocity, gate), velocity
 
     return step

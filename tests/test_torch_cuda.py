@@ -23,12 +23,16 @@ from opticalflow2d_tpu_torch.kernels.diffusion_block import (
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
     diffusion_step_fused, diffusion_step_ref)
 from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block, elastic_block_ref
-from opticalflow2d_tpu_torch.kernels.fluid_fused import fluid_iter, fluid_iter_ref
+from opticalflow2d_tpu_torch.engine import registration
+from opticalflow2d_tpu_torch.kernels.fluid_fused import (
+    fluid_euler, fluid_euler_ref, fluid_iter, fluid_iter_ref, fluid_sweep_max,
+    fluid_sweep_max_ref)
 from opticalflow2d_tpu_torch.kernels.logger_norms import (
     fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_ref)
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
     compose, compose_ref, warp2d, warp2d_ref)
 from opticalflow2d_tpu_torch.solvers.base import derivatives
+from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
 
 pytestmark = pytest.mark.cuda
 
@@ -261,3 +265,70 @@ def test_lexicographic_sweep_runs_plain_on_the_gpu(cuda, method):
     gpu = register(iref, imov, cfg)
     assert [t.iterations for t in gpu.traces] == [t.iterations for t in cpu.traces]
     assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
+
+
+def _fluid_inputs(shape, dev):
+    _, _, g, u = _inputs(*shape, dev)
+    vel = _zero_border(torch.tanh(u.flip(1)) * 0.3).contiguous()
+    return (torch.tanh(u) * 0.6).contiguous(), vel, g
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (4, 4), (33, 1000)])
+@pytest.mark.parametrize("ref_stencil,bug", [(True, False), (False, False), (True, True)])
+def test_fluid_sweep_max_matches_plain_and_fluid_iter(cuda, shape, ref_stencil, bug):
+    """B8 against its plain version, and bit for bit against B7's vel' and
+    max |R|^2 on the same inputs."""
+    u, vel, g = _fluid_inputs(shape, cuda)
+    args = (u, vel, g, 0.25, 0.1, 1.5, ref_stencil, bug)
+    got_v, got_m = fluid_sweep_max(*args)
+    want_v, want_m = fluid_sweep_max_ref(*args)
+    assert _max_abs(got_v, want_v) <= FIELD_TOL
+    np.testing.assert_allclose(float(got_m), float(want_m), rtol=1e-6)
+    b7_v, _, b7_m = fluid_iter(*args)
+    assert torch.equal(got_v, b7_v) and torch.equal(got_m, b7_m)
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (2, 2), (33, 1000)])
+@pytest.mark.parametrize("gate", [0.37, 0.0])
+def test_fluid_euler_matches_plain(cuda, shape, gate):
+    u, vel, _ = _fluid_inputs(shape, cuda)
+    gate = torch.tensor(gate, device=cuda)
+    got = fluid_euler(u, vel, gate)
+    assert _max_abs(got, fluid_euler_ref(u, vel, gate)) <= FIELD_TOL
+    if float(gate) == 0:
+        assert torch.equal(got, u)
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77)])
+def test_two_pass_iteration_equals_one_pass_iteration(cuda, shape):
+    """One iteration by each route, bit for bit: B8 + gate + B9 against B7 +
+    the plain Euler update; B9's R equals B7's."""
+    u, vel, g = _fluid_inputs(shape, cuda)
+    one = make_fluid_step(0.25, 0.1, 1.5)(u, vel, g)
+    two = make_fluid_two_pass_step(0.25, 0.1, 1.5)(u, vel, g)
+    assert torch.equal(two[0], one[0]) and torch.equal(two[1], one[1])
+    v, r, _ = fluid_iter(u, vel, g, 0.25, 0.1, 1.5)
+    assert torch.equal(fluid_euler(u, v, torch.tensor(1.0, device=cuda)), u + r)
+
+
+def test_forced_two_pass_route_equals_default_gpu_run(cuda):
+    """A fluid registration with every level on the two-pass route (the
+    route's extent lowered) gives the default run's bits and counts, and
+    launches B8 and B9 once an iteration."""
+    iref, imov, _, _ = _inputs(96, 64, cuda)
+    cfg = RegConfig(method=Method.FLUID, niter=(150, 150), nscales=1, nrefine=2, mu=0.25,
+                    lam=0.0, regrid_threshold=0.95)
+    want = register(iref, imov, cfg)
+    kernels.reset_launches()
+    saved = registration._DERIV_BARRIER_MIN_EXTENT
+    registration._DERIV_BARRIER_MIN_EXTENT = 0
+    try:
+        got = register(iref, imov, cfg)
+    finally:
+        registration._DERIV_BARRIER_MIN_EXTENT = saved
+    iterations = sum(t.iterations for t in got.traces)
+    assert [t.iterations for t in got.traces] == [t.iterations for t in want.traces]
+    assert [t.regrids for t in got.traces] == [t.regrids for t in want.traces]
+    assert torch.equal(got.motion, want.motion)
+    assert kernels.LAUNCHES["fluid_sweep_max"] == kernels.LAUNCHES["fluid_euler"] == iterations
+    assert kernels.LAUNCHES["fluid_iter"] == 0
