@@ -8,8 +8,11 @@ the caller passes ``device="cpu"``; without a CUDA device they raise. On
 CUDA the hand-written kernels (``opticalflow2d_tpu_torch.kernels``) carry
 the run; on the CPU their plain PyTorch versions do. Ported so far: the
 diffusion (Horn-Schunck), Thirion and diffeomorphic demons, elastic
-(Navier-Lame SOR) and viscous-fluid registrations, and ``register_phased``,
-the JAX API's huge-grid entry point.
+(Navier-Lame SOR) and viscous-fluid registrations, ``register_phased``,
+the JAX API's huge-grid entry point, and ``parallel``: the mesh and the
+strip-parallel drivers of diffusion, elastic and fluid
+(``make_register_sp`` and its level and sweep factories), one process over
+the strips' devices.
 """
 
 from opticalflow2d_tpu_torch.config import (

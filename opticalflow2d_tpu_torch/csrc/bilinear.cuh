@@ -19,6 +19,7 @@ namespace {
 struct Bilinear {
   float w00, w10, w01, w11, weight;
   size_t p00, p10, p01, p11;
+  int dx, dy;  // the floor corner
   bool in_bounds;
 };
 
@@ -31,6 +32,8 @@ __device__ __forceinline__ Bilinear bilinear_at(int i, int j, float ux, float uy
   const float dxf = floorf(px), dyf = floorf(py);
   const float fx = px - dxf, fy = py - dyf;
   const int dx = static_cast<int>(dxf), dy = static_cast<int>(dyf);
+  b.dx = dx;
+  b.dy = dy;
   b.in_bounds = dx >= 0 && dx < nx && dy >= 0 && dy < ny;
   const bool has_x1 = dx < nx - 1, has_y1 = dy < ny - 1;
   b.w00 = (1.f - fx) * (1.f - fy);

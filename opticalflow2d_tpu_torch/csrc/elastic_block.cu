@@ -1,10 +1,13 @@
 // Temporal-blocked elastic registration on Hopper (sm_90a): k elastic
 // iterations (the pointwise L-SSD force, then a red and a black SOR
 // half-sweep of the Navier-Lame system) per pass over device memory, with
-// the reference Logger's per-iteration sums.
+// the reference Logger's per-iteration sums. One body, two entry points:
+//   B6 of2d_elastic_block, the whole image;
+//   K2 of2d_elastic_block_strip, one strip of the strip-parallel driver
+//      (parallel/spatial.py), pre-padded with pad >= 2k halo rows a side.
 //
 // Replaces: opticalflow2d_tpu/pallas_kernels/elastic_block.py,
-//   elastic_block_pallas (the TPU kernel, :206).
+//   elastic_block_pallas (B6, :206) and elastic_block_strip (K2, :281).
 // Bound on this card: device-memory bandwidth. A pass reads u (2 planes)
 //   and g = (gx, gy, It) (3 planes) and writes u: 28 B per pixel for k
 //   iterations of about 50 flops each.
@@ -18,6 +21,10 @@
 //   back (sor_stages.cuh): no half-sweep updates in place. The force at a
 //   cell is computed from the half's input: the black cells are untouched
 //   by the red half, so both halves see the iteration's starting field.
+// Strips (rows.cuh): tile rows are read from the padded strip and masked
+//   and coloured by global row, (row0 + li + gj) % 2; the cone of 2k rows
+//   stays inside the pad. The strips of an image, concatenated, equal B6
+//   on the image bit for bit; a strip's sums are its own.
 // Border: updates only at global interior cells (1 <= i <= nx-2,
 //   1 <= j <= ny-2). Cells outside the image load as 0, keep their value
 //   and are read by no image cell. Ragged tiles need nothing else.
@@ -47,7 +54,7 @@ __host__ __device__ constexpr int elastic_smem_floats(int k) {
 template <bool kRefStencil>
 __global__ void __launch_bounds__(kSorThreads)
 elastic_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
-                     float* __restrict__ out, float* __restrict__ partials, int nx, int ny,
+                     float* __restrict__ out, float* __restrict__ partials, Rows r, int ny,
                      int k, SorScalars s) {
   extern __shared__ float smem[];
   const int h = 2 * k;              // halo
@@ -57,21 +64,23 @@ elastic_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
   float* nxt = cur + 2 * ee;
   float* gs = nxt + 2 * ee;
   float* red = gs + 3 * ee;
-  const int gi0 = blockIdx.y * kSorTile - h;  // global index of extended row 0
+  const int li0 = blockIdx.y * kSorTile - h;  // local index of extended row 0
+  const int gi0 = r.row0 + li0;                // and its global index
   const int gj0 = blockIdx.x * kSorTile - h;
+  const int gi_end = r.row0 + r.nxl;
 
-  load_tile(u, cur, 2, nx, ny, gi0, gj0, e);
-  load_tile(g, gs, 3, nx, ny, gi0, gj0, e);
+  load_tile(u, cur, 2, r, ny, li0, gj0, e);
+  load_tile(g, gs, 3, r, ny, li0, gj0, e);
   __syncthreads();
 
   const int ty = threadIdx.x, tx = threadIdx.y;  // lane along y, warp along x
   for (int t = 0; t < k; ++t) {
     float dsum = 0.f, psum = 0.f;
     sor_half_sweep<kRefStencil, false>(cur, nxt, cur, gs, e, 2 * t + 1, e - 2 * t - 1, gi0,
-                                       gj0, nx, ny, 0, s, 0, 0, dsum, psum);
+                                       gj0, r.nx, ny, 0, s, 0, 0, gi_end, dsum, psum);
     __syncthreads();
     sor_half_sweep<kRefStencil, true>(nxt, cur, nxt, gs, e, 2 * t + 2, e - 2 * t - 2, gi0,
-                                      gj0, nx, ny, 1, s, h, h + kSorTile, dsum, psum);
+                                      gj0, r.nx, ny, 1, s, h, h + kSorTile, gi_end, dsum, psum);
     dsum = warp_sum(dsum);
     psum = warp_sum(psum);
     if (ty == 0) {
@@ -81,14 +90,14 @@ elastic_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
     __syncthreads();  // cur is complete before the next red half reads it
   }
 
-  const size_t n = static_cast<size_t>(nx) * ny;
+  const size_t n = r.out_plane(ny);
   for (int li = h + tx; li < h + kSorTile; li += kSorThreadsX) {
-    const int gi = gi0 + li;
-    if (gi >= nx) break;
+    const int lr = li0 + li;
+    if (lr >= r.nxl) break;
     for (int lj = h + ty; lj < h + kSorTile; lj += kSorThreadsY) {
       const int gj = gj0 + lj;
       if (gj >= ny) break;
-      const size_t p = static_cast<size_t>(gi) * ny + gj;
+      const size_t p = static_cast<size_t>(lr) * ny + gj;
       const int l = li * e + lj;
       out[p] = cur[l];
       out[n + p] = cur[ee + l];
@@ -107,18 +116,26 @@ elastic_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
 
 template <bool kRefStencil>
 int launch_elastic_block(const float* u, const float* g, float* out, float* partials,
-                         float* sums, int nx, int ny, int k, SorScalars s,
+                         float* sums, Rows r, int ny, int k, SorScalars s,
                          cudaStream_t stream) {
   const int smem = static_cast<int>(elastic_smem_floats(k) * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(elastic_block_kernel<kRefStencil>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(sor_tiles(ny), sor_tiles(nx));
+  const dim3 grid(sor_tiles(ny), sor_tiles(r.nxl));
   elastic_block_kernel<kRefStencil><<<grid, dim3(kSorThreadsY, kSorThreadsX), smem, stream>>>(
-      u, g, out, partials, nx, ny, k, s);
+      u, g, out, partials, r, ny, k, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_sum_partials(partials, sums, static_cast<int>(grid.x * grid.y), 2 * k, stream);
+}
+
+int dispatch_elastic_block(const float* u, const float* g, float* out, float* partials,
+                           float* sums, Rows r, int ny, int k, SorScalars s,
+                           int reference_stencil, cudaStream_t stream) {
+  return reference_stencil
+             ? launch_elastic_block<true>(u, g, out, partials, sums, r, ny, k, s, stream)
+             : launch_elastic_block<false>(u, g, out, partials, sums, r, ny, k, s, stream);
 }
 
 }  // namespace
@@ -127,16 +144,30 @@ extern "C" int of2d_elastic_block_smem_bytes(int k) {
   return static_cast<int>(elastic_smem_floats(k) * sizeof(float));
 }
 
+// Thread blocks of a launch over nx (or a strip's nxl) rows.
 extern "C" int of2d_sor_nblocks(int nx, int ny) { return sor_tiles(nx) * sor_tiles(ny); }
 
-// u [2, nx, ny], g [3, nx, ny] -> out [2, nx, ny], sums [k, 2];
+// B6: u [2, nx, ny], g [3, nx, ny] -> out [2, nx, ny], sums [k, 2];
 // partials [nblocks, k, 2] is scratch.
 extern "C" int of2d_elastic_block(const float* u, const float* g, float* out, float* partials,
                                   float* sums, int nx, int ny, int k, float mu, float mpl,
                                   float omw, float inv_diag, int reference_stencil,
                                   cudaStream_t stream) {
-  const SorScalars s{mu, mpl, omw, inv_diag};
-  return reference_stencil
-             ? launch_elastic_block<true>(u, g, out, partials, sums, nx, ny, k, s, stream)
-             : launch_elastic_block<false>(u, g, out, partials, sums, nx, ny, k, s, stream);
+  return dispatch_elastic_block(u, g, out, partials, sums, whole_image(nx), ny, k,
+                                SorScalars{mu, mpl, omw, inv_diag}, reference_stencil, stream);
+}
+
+// K2: u_pad [2, nxl + 2 pad, ny], g_pad [3, nxl + 2 pad, ny] of the strip
+// whose first owned row is global row row0 of nx_glob -> out [2, nxl, ny]
+// and the strip's sums [k, 2]; partials [nblocks(nxl, ny), k, 2] is
+// scratch. Needs pad >= 2k.
+extern "C" int of2d_elastic_block_strip(const float* u_pad, const float* g_pad, float* out,
+                                        float* partials, float* sums, int nxl, int ny, int k,
+                                        int pad, int row0, int nx_glob, float mu, float mpl,
+                                        float omw, float inv_diag, int reference_stencil,
+                                        cudaStream_t stream) {
+  const Rows r{nxl, pad, row0, nx_glob};
+  if (!strip_ok(r, 2 * k)) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_elastic_block(u_pad, g_pad, out, partials, sums, r, ny, k,
+                                SorScalars{mu, mpl, omw, inv_diag}, reference_stencil, stream);
 }

@@ -5,7 +5,10 @@
 // kernels.
 //
 // A buffer is two planes (x, y components) of e x e floats, row-major, at
-// a plane stride of e * e; its cell (0, 0) lies at global (gi0, gj0).
+// a plane stride of e * e; its cell (0, 0) lies at global (gi0, gj0). The
+// colours and the interior are global, so a strip (rows.cuh) sweeps its
+// rows as the whole image does; a strip whose first row is odd has the
+// colours of its local indices flipped (parallel/spatial.py:175-182).
 //
 // A half-sweep cannot update in place: the cross term of component c reads
 // the other component at the four diagonal neighbours, which have the
@@ -23,6 +26,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -60,20 +65,20 @@ __device__ __forceinline__ float sor_candidate(const float* x, int ee, int e, in
 // gs = (gx, gy, It) (three planes). Reads x, writes out.
 //
 // kSums: also add, per thread, |out - prev| and |prev| over the cells of
-// [t_lo, t_hi)^2 inside the image, where prev is what ``out`` held before
-// this half-sweep (the Logger's previous field).
+// [t_lo, t_hi)^2 inside the image and above global row gi_end (the end of
+// the rows the launch owns), where prev is what ``out`` held before this
+// half-sweep (the Logger's previous field).
 template <bool kRefStencil, bool kSums>
 __device__ __forceinline__ void sor_half_sweep(const float* x, float* out, const float* f,
                                                const float* gs, int e, int lo, int hi,
                                                int gi0, int gj0, int nx, int ny, int parity,
                                                const SorScalars& s, int t_lo, int t_hi,
-                                               float& dsum, float& psum) {
+                                               int gi_end, float& dsum, float& psum) {
   const int ee = e * e;
   for (int li = lo + threadIdx.y; li < hi; li += kSorThreadsX) {
     const int gi = gi0 + li;
-    const bool row_in = gi >= 0 && gi < nx;
     const bool row_interior = gi >= 1 && gi <= nx - 2;
-    const bool row_sums = kSums && row_in && li >= t_lo && li < t_hi;
+    const bool row_sums = kSums && gi >= 0 && gi < gi_end && li >= t_lo && li < t_hi;
     for (int lj = lo + threadIdx.x; lj < hi; lj += kSorThreadsY) {
       const int gj = gj0 + lj;
       const int l = li * e + lj;
@@ -96,19 +101,21 @@ __device__ __forceinline__ void sor_half_sweep(const float* x, float* out, const
   }
 }
 
-// Load planes [p0, p0 + np) of a [*, nx, ny] field into a tile buffer of
-// e x e cells per plane at global (gi0, gj0); cells outside the image hold 0.
+// Load the first nplanes planes of a field with rows r (rows.cuh) into a
+// tile buffer of e x e cells per plane whose cell (0, 0) is at local row li0
+// and column gj0; cells outside the input or the image hold 0.
 __device__ __forceinline__ void load_tile(const float* __restrict__ src, float* dst,
-                                          int nplanes, int nx, int ny, int gi0, int gj0,
+                                          int nplanes, const Rows& r, int ny, int li0, int gj0,
                                           int e) {
-  const size_t n = static_cast<size_t>(nx) * ny;
+  const size_t n = r.in_plane(ny);
   const int ee = e * e;
   for (int li = threadIdx.y; li < e; li += kSorThreadsX) {
-    const int gi = gi0 + li;
+    const bool row_ok = r.loadable(li0 + li);
+    const size_t row = r.in_row(li0 + li, ny);
     for (int lj = threadIdx.x; lj < e; lj += kSorThreadsY) {
       const int gj = gj0 + lj;
-      const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
-      const size_t p = in ? static_cast<size_t>(gi) * ny + gj : 0;
+      const bool in = row_ok && gj >= 0 && gj < ny;
+      const size_t p = in ? row + gj : 0;
       for (int c = 0; c < nplanes; ++c) dst[c * ee + li * e + lj] = in ? src[c * n + p] : 0.f;
     }
   }

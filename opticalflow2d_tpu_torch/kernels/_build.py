@@ -41,9 +41,12 @@ _SIGNATURES = {
     "of2d_diffusion_block_smem_bytes": ((_I,), _I),
     "of2d_diffusion_block_nblocks": ((_I, _I), _I),
     "of2d_diffusion_block": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
+    "of2d_diffusion_block_strip": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P), _I),
     "of2d_diffusion_step": ((_P, _P, _P, _P, _P, _I, _I, _F, _P), _I),
     "of2d_warp2d": ((_P, _P, _P, _I, _I, _P), _I),
     "of2d_compose": ((_P, _P, _P, _I, _I, _P), _I),
+    "of2d_warp2d_strip": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    "of2d_compose_strip": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "of2d_logger_norms_nblocks": ((_I, _I), _I),
     "of2d_logger_norms": ((_P, _P, _P, _P, _I, _I, _P), _I),
     "of2d_demons_nblocks": ((_I, _I), _I),
@@ -58,8 +61,12 @@ _SIGNATURES = {
     "of2d_sor_nblocks": ((_I, _I), _I),
     "of2d_elastic_block_smem_bytes": ((_I,), _I),
     "of2d_elastic_block": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P), _I),
+    "of2d_elastic_block_strip": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                                  _I, _P), _I),
     "of2d_fluid_iter_smem_bytes": ((), _I),
     "of2d_fluid_iter": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P), _I),
+    "of2d_fluid_iter_strip": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                               _I, _I, _P), _I),
     "of2d_fluid_sweep_max": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P), _I),
     "of2d_fluid_euler": ((_P, _P, _P, _P, _I, _I, _P), _I),
 }
@@ -162,6 +169,24 @@ def check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def strip_rows(t_pad: torch.Tensor, pad: int) -> int:
+    """The rows a strip owns, of a tensor ``[c, nxl + 2 pad, ny]`` padded
+    with ``pad`` halo rows a side."""
+    nxl = t_pad.shape[-2] - 2 * pad
+    if nxl < 1:
+        raise ValueError(f"a strip padded with {pad} rows a side needs more than "
+                         f"{2 * pad} rows, got {t_pad.shape[-2]}")
+    return nxl
+
+
+def check_strip(row0: int, nxl: int, nx_glob: int) -> None:
+    """Raise unless a strip's rows ``row0 .. row0 + nxl`` lie in the image's
+    ``nx_glob`` rows."""
+    if not (row0 >= 0 and nxl >= 1 and row0 + nxl <= nx_glob):
+        raise ValueError(f"strip rows {row0}..{row0 + nxl} outside an image of "
+                         f"{nx_glob} rows")
 
 
 def check_smem(need: int, device: torch.device, what: str) -> None:

@@ -15,15 +15,23 @@ from opticalflow2d_tpu_torch.kernels import _build
 
 
 def diffusion_step_ref(u: torch.Tensor, grad_i: torch.Tensor, it: torch.Tensor,
-                       alpha: float) -> torch.Tensor:
+                       alpha: float, row0: int = 0, nx_glob: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, in the kernel's order of
     operations: ``q = (up + down + (left + right)) * 0.25``, zero on the
     border. ``solvers.diffusion.diffusion_step`` sums the four neighbours
-    left to right instead; the two differ by about an ulp."""
+    left to right instead; the two differ by about an ulp.
+
+    ``row0``/``nx_glob``: ``u`` holds rows ``row0..`` of an image of
+    ``nx_glob`` rows (a strip with its halo rows), and ``q`` is also zero on
+    the image's first and last rows; the strip's own first and last rows
+    take no neighbours from beyond it."""
     q = torch.zeros_like(u)
     q[:, 1:-1, 1:-1] = (
         u[:, :-2, 1:-1] + u[:, 2:, 1:-1] + (u[:, 1:-1, :-2] + u[:, 1:-1, 2:])
     ) * 0.25
+    if nx_glob is not None:
+        gi = torch.arange(row0, row0 + u.shape[1], device=u.device)[:, None]
+        q = torch.where((gi == 0) | (gi == nx_glob - 1), 0.0, q)
     gx, gy = grad_i[0], grad_i[1]
     inner = it + q[0] * gx + q[1] * gy
     den = _build.f32(alpha * alpha) + gx * gx + gy * gy

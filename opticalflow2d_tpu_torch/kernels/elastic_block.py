@@ -8,6 +8,9 @@ A thread block holds its 32x32 tile with a halo of ``2k`` cells in shared
 memory, 7 planes of ``(32 + 4k)^2`` floats: 64.5 KB at k = 4; the wrapper
 checks the card's limit before the launch. Relative error of iteration t
 is ``sums[t, 0] / sums[t, 1]``, as for the diffusion block.
+``elastic_block_strip`` runs one strip of the strip-parallel driver
+(``parallel.spatial``), pre-padded with its neighbours' halo rows; its
+colours are those of the global rows.
 """
 
 from __future__ import annotations
@@ -24,16 +27,19 @@ from opticalflow2d_tpu_torch.solvers.elastic import elastic_step, sor_scalars
 
 
 def elastic_block_ref(u: torch.Tensor, g: torch.Tensor, mu: float, lam: float, omega: float,
-                      reference_stencil: bool, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      reference_stencil: bool, k: int, row0: int = 0,
+                      nx_glob: int | None = None,
+                      own: slice = slice(None)) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: ``k`` red-black elastic steps,
-    and for each the sums ``[sum |u_t - u_{t-1}|, sum |u_{t-1}|]`` as a
-    ``[k, 2]`` tensor."""
+    and for each the sums ``[sum |u_t - u_{t-1}|, sum |u_{t-1}|]`` over the
+    rows ``own`` as a ``[k, 2]`` tensor; ``row0``/``nx_glob`` as for
+    ``solvers.elastic.sor_sweep``."""
     d = Derivatives(g[:2], g[2])
     sums = torch.empty((k, 2), dtype=u.dtype, device=u.device)
     for t in range(k):
-        new = elastic_step(u, d, mu, lam, omega, reference_stencil, "redblack")
-        sums[t, 0] = _magnitude_sum(new - u)
-        sums[t, 1] = _magnitude_sum(u)
+        new = elastic_step(u, d, mu, lam, omega, reference_stencil, "redblack", row0, nx_glob)
+        sums[t, 0] = _magnitude_sum(new[:, own] - u[:, own])
+        sums[t, 1] = _magnitude_sum(u[:, own])
         u = new
     return u, sums
 
@@ -65,4 +71,62 @@ def elastic_block(u: torch.Tensor, g: torch.Tensor, mu: float, lam: float, omega
         *sor_scalars(mu, lam, omega), int(reference_stencil),
     )
     kernels.LAUNCHES["elastic_block"] += 1
+    return out, sums
+
+
+def required_pad(k: int) -> int:
+    """Halo rows a side that the strip-parallel driver gives a block of
+    ``k`` elastic iterations, whose cone grows two rows an iteration:
+    ``2k`` rounded up to 8, the TPU kernel's rows (``elastic_block.py:270``);
+    the kernel needs ``pad >= 2k``."""
+    return ((2 * k + 7) // 8) * 8
+
+
+def elastic_block_strip_ref(u_pad: torch.Tensor, g_pad: torch.Tensor, row0: int,
+                            nx_glob: int, mu: float, lam: float, omega: float,
+                            reference_stencil: bool, k: int,
+                            pad: int | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the strip kernel: ``elastic_block_ref`` on
+    the padded strip with global colours and interior, the sums over the
+    strip's own rows."""
+    pad = required_pad(k) if pad is None else pad
+    own = slice(pad, pad + _build.strip_rows(u_pad, pad))
+    u, sums = elastic_block_ref(u_pad, g_pad, mu, lam, omega, reference_stencil, k,
+                                row0 - pad, nx_glob, own)
+    return u[:, own].contiguous(), sums
+
+
+def elastic_block_strip(u_pad: torch.Tensor, g_pad: torch.Tensor, row0: int, nx_glob: int,
+                        mu: float, lam: float, omega: float, reference_stencil: bool, k: int,
+                        pad: int | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``k`` elastic iterations on one strip (arguments as for
+    ``diffusion_block.diffusion_block_strip``; ``pad`` defaults to
+    ``required_pad(k)`` and must be at least ``2k``). Returns ``(u_k [2,
+    nxl, ny], sums [k, 2])``, the strip's own Logger sums. The plain version
+    on the CPU, the kernel on CUDA."""
+    pad = required_pad(k) if pad is None else pad
+    if _build.on_cpu(u_pad, g_pad):
+        return elastic_block_strip_ref(u_pad, g_pad, row0, nx_glob, mu, lam, omega,
+                                       reference_stencil, k, pad)
+    if u_pad.device.type != "cuda":
+        raise ValueError(f"no elastic block for device {u_pad.device}")
+    nxl, ny = _build.strip_rows(u_pad, pad), u_pad.shape[-1]
+    _build.check_cuda("u_pad", u_pad, (2, nxl + 2 * pad, ny), u_pad.device)
+    _build.check_cuda("g_pad", g_pad, (3, nxl + 2 * pad, ny), u_pad.device)
+    _build.check_strip(row0, nxl, nx_glob)
+    if not 1 <= 2 * k <= pad:
+        raise ValueError(f"k must be in [1, pad / 2 = {pad // 2}], got {k}")
+    lib = _build.load()
+    _build.check_smem(lib.of2d_elastic_block_smem_bytes(k), u_pad.device,
+                      f"an elastic block with k={k} (use a smaller block_k)")
+    out = torch.empty((2, nxl, ny), dtype=u_pad.dtype, device=u_pad.device)
+    partials = torch.empty((lib.of2d_sor_nblocks(nxl, ny), k, 2), dtype=u_pad.dtype,
+                           device=u_pad.device)
+    sums = torch.empty((k, 2), dtype=u_pad.dtype, device=u_pad.device)
+    _build.launch(
+        "of2d_elastic_block_strip", u_pad.device, u_pad.data_ptr(), g_pad.data_ptr(),
+        out.data_ptr(), partials.data_ptr(), sums.data_ptr(), nxl, ny, k, pad, row0, nx_glob,
+        *sor_scalars(mu, lam, omega), int(reference_stencil),
+    )
+    kernels.LAUNCHES["elastic_block_strip"] += 1
     return out, sums

@@ -15,6 +15,11 @@ The two-pass iteration of large grids never stores R
 ``fluid_sweep_max`` is the same pass writing vel' and ``max |R|^2`` only,
 and ``fluid_euler`` (CUDA ``csrc/fluid_euler.cu``) recomputes R from u and
 vel', bit for bit, and applies the gated Euler step.
+
+``fluid_iter_strip`` is ``fluid_iter`` on one strip of the strip-parallel
+driver (``parallel.spatial``), pre-padded with ``FLUID_PAD`` halo rows a
+side: the colours, the interior and R's one-sided borders are the image's,
+and its ``max |R|^2`` is the strip's, which the driver maxes over strips.
 """
 
 from __future__ import annotations
@@ -25,10 +30,15 @@ import torch
 
 from opticalflow2d_tpu_torch import kernels
 from opticalflow2d_tpu_torch.kernels import _build
-from opticalflow2d_tpu_torch.ops.grid import partial_x, partial_y
+from opticalflow2d_tpu_torch.ops.grid import partial_x, partial_x_rows, partial_y
 from opticalflow2d_tpu_torch.ops.reduce import motion_max_normsq
 from opticalflow2d_tpu_torch.solvers.base import Derivatives, lssd_force
 from opticalflow2d_tpu_torch.solvers.elastic import sor_scalars, sor_sweep
+
+
+# Halo rows a side the strip-parallel driver gives the strip kernel: the
+# TPU kernel's _PAD (fluid_fused.py:52); the sweep's cone needs 2.
+FLUID_PAD = 8
 
 
 def material_derivative(u: torch.Tensor, vel: torch.Tensor) -> torch.Tensor:
@@ -150,3 +160,59 @@ def fluid_euler(u: torch.Tensor, vel: torch.Tensor, gate: torch.Tensor) -> torch
                   out.data_ptr(), nx, ny)
     kernels.LAUNCHES["fluid_euler"] += 1
     return out
+
+
+def fluid_iter_strip_ref(u_pad: torch.Tensor, vel_pad: torch.Tensor, g_pad: torch.Tensor,
+                         row0: int, nx_glob: int, mu: float, lam: float, omega: float,
+                         reference_stencil: bool = True, maxabs_bug: bool = False,
+                         pad: int = FLUID_PAD
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the strip kernel: ``fluid_iter_ref`` on the
+    padded strip with the image's colours, interior and borders; returns
+    the strip's ``(vel' [2, nxl, ny], R, maxsq)``."""
+    nxl = _build.strip_rows(u_pad, pad)
+    f = lssd_force(Derivatives(g_pad[:2], g_pad[2]), u_pad)
+    vel = sor_sweep(vel_pad, f, mu, lam, omega, reference_stencil, "redblack", row0 - pad,
+                    nx_glob)[:, pad:pad + nxl]
+    u = u_pad[:, pad - 1:pad + nxl + 1]
+    gi = torch.arange(row0, row0 + nxl, device=u.device)[:, None]
+    r = vel - partial_x_rows(u, gi, nx_glob) * vel[0:1] - partial_y(u[:, 1:-1]) * vel[1:2]
+    return vel.contiguous(), r, motion_max_normsq(r, maxabs_bug)
+
+
+def fluid_iter_strip(u_pad: torch.Tensor, vel_pad: torch.Tensor, g_pad: torch.Tensor,
+                     row0: int, nx_glob: int, mu: float, lam: float, omega: float,
+                     reference_stencil: bool = True, maxabs_bug: bool = False,
+                     pad: int = FLUID_PAD) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``fluid_iter`` on one strip: ``u_pad, vel_pad [2, nxl + 2 pad, ny]``
+    and ``g_pad [3, ...]`` carry ``pad`` halo rows a side (zeros beyond the
+    image), ``row0`` is the global index of the strip's first row and
+    ``nx_glob`` the image's rows. Returns the strip's ``(vel', R, maxsq)``.
+    The plain version on the CPU, the kernel on CUDA."""
+    if _build.on_cpu(u_pad, vel_pad, g_pad):
+        return fluid_iter_strip_ref(u_pad, vel_pad, g_pad, row0, nx_glob, mu, lam, omega,
+                                    reference_stencil, maxabs_bug, pad)
+    if u_pad.device.type != "cuda":
+        raise ValueError(f"no fluid kernel for device {u_pad.device}")
+    nxl, ny = _build.strip_rows(u_pad, pad), u_pad.shape[-1]
+    for name, t, c in (("u_pad", u_pad, 2), ("vel_pad", vel_pad, 2), ("g_pad", g_pad, 3)):
+        _build.check_cuda(name, t, (c, nxl + 2 * pad, ny), u_pad.device)
+    _build.check_strip(row0, nxl, nx_glob)
+    if pad < 2 or min(nx_glob, ny) < 2:
+        raise ValueError(f"the fluid strip kernel needs pad >= 2 and nx, ny >= 2, got "
+                         f"pad {pad}, {(nx_glob, ny)}")
+    lib = _build.load()
+    _build.check_smem(lib.of2d_fluid_iter_smem_bytes(), u_pad.device, "the fluid iteration")
+    vel_out = torch.empty((2, nxl, ny), dtype=u_pad.dtype, device=u_pad.device)
+    r = torch.empty_like(vel_out)
+    partials = torch.empty(lib.of2d_sor_nblocks(nxl, ny), dtype=u_pad.dtype,
+                           device=u_pad.device)
+    maxsq = torch.empty((), dtype=u_pad.dtype, device=u_pad.device)
+    _build.launch(
+        "of2d_fluid_iter_strip", u_pad.device, u_pad.data_ptr(), vel_pad.data_ptr(),
+        g_pad.data_ptr(), vel_out.data_ptr(), r.data_ptr(), partials.data_ptr(),
+        maxsq.data_ptr(), nxl, ny, pad, row0, nx_glob, *sor_scalars(mu, lam, omega),
+        int(reference_stencil), int(maxabs_bug),
+    )
+    kernels.LAUNCHES["fluid_iter_strip"] += 1
+    return vel_out, r, maxsq

@@ -18,11 +18,10 @@ from opticalflow2d_tpu_torch import kernels
 from opticalflow2d_tpu_torch.kernels import _build
 
 
-def bilinear(data: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
-    """Bilinear samples of ``data [C, nx, ny]`` at ``(px, py)`` (any 2D
-    grid): ``(value [C, ...], weight, in_bounds)`` before renormalization,
-    with the reference's tap inclusion (``src/Image.cpp:155-173``)."""
-    nx, ny = data.shape[-2], data.shape[-1]
+def _weights(px: torch.Tensor, py: torch.Tensor, nx: int, ny: int):
+    """The floor corner ``(dx, dy)`` of samples at ``(px, py)`` on an
+    ``nx x ny`` grid, their four weights with the reference's tap inclusion
+    (``src/Image.cpp:155-173``), the weights' sum and the bounds test."""
     dxf = torch.floor(px)
     dyf = torch.floor(py)
     fx = px - dxf
@@ -36,11 +35,19 @@ def bilinear(data: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     w10 = torch.where(has_x1, fx * (1.0 - fy), 0.0)
     w01 = torch.where(has_y1, (1.0 - fx) * fy, 0.0)
     w11 = torch.where(has_x1 & has_y1, fx * fy, 0.0)
+    return dx, dy, (w00, w10, w01, w11), w00 + w10 + w01 + w11, in_bounds
+
+
+def bilinear(data: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """Bilinear samples of ``data [C, nx, ny]`` at ``(px, py)`` (any 2D
+    grid): ``(value [C, ...], weight, in_bounds)`` before renormalization,
+    with the reference's tap inclusion (``src/Image.cpp:155-173``)."""
+    nx, ny = data.shape[-2], data.shape[-1]
+    dx, dy, (w00, w10, w01, w11), weight, in_bounds = _weights(px, py, nx, ny)
     x0, x1 = dx.clamp(0, nx - 1), (dx + 1).clamp(0, nx - 1)
     y0, y1 = dy.clamp(0, ny - 1), (dy + 1).clamp(0, ny - 1)
     value = (data[..., x0, y0] * w00 + data[..., x1, y0] * w10
              + data[..., x0, y1] * w01 + data[..., x1, y1] * w11)
-    weight = w00 + w10 + w01 + w11
     return value, weight, in_bounds
 
 
@@ -68,6 +75,82 @@ def compose_ref(u_total: torch.Tensor, u_inc: torch.Tensor) -> torch.Tensor:
     # where the weight vanishes); out of bounds: the old total.
     inc_plus = u_inc + torch.where(weight != 0, warped, 0.0)
     return torch.where(in_bounds[None], inc_plus, u_total)
+
+
+def _global_coords(u: torch.Tensor, row0: int):
+    """Global sample coordinates of a strip whose first row is ``row0``."""
+    nxl, ny = u.shape[-2], u.shape[-1]
+    gi = torch.arange(nxl, dtype=u.dtype, device=u.device)[:, None] + row0
+    gj = torch.arange(ny, dtype=u.dtype, device=u.device)[None, :]
+    return gi + u[0], gj + u[1]
+
+
+def _bilinear_local(data_pad: torch.Tensor, px: torch.Tensor, py: torch.Tensor, row0: int,
+                    nx_glob: int, halo: int):
+    """``bilinear`` for a strip of ``nxl`` rows whose first is global row
+    ``row0``: ``data_pad [C, nxl + 2 pad, ny]`` carries ``pad`` halo rows a
+    side, ``(px, py)`` are global coordinates. Weights and bounds are the
+    image's; a sample's taps are read only where both floor offsets lie in
+    ``[-halo, halo]`` and are 0 elsewhere (``parallel/spatial.py:262-315``)."""
+    nxl, ny = px.shape
+    pad = (data_pad.shape[-2] - nxl) // 2
+    dx, dy, (w00, w10, w01, w11), weight, in_bounds = _weights(px, py, nx_glob, ny)
+    gi = torch.arange(row0, row0 + nxl, device=px.device)[:, None]
+    gj = torch.arange(ny, device=px.device)[None, :]
+    taps = ((dx - gi).abs() <= halo) & ((dy - gj).abs() <= halo)
+    x0 = torch.where(taps, dx - row0 + pad, pad)
+    y0, y1 = dy.clamp(0, ny - 1), (dy + 1).clamp(0, ny - 1)
+
+    def tap(x, y):
+        return torch.where(taps, data_pad[..., x, y], 0.0)
+
+    value = (tap(x0, y0) * w00 + tap(x0 + 1, y0) * w10
+             + tap(x0, y1) * w01 + tap(x0 + 1, y1) * w11)
+    return value, weight, in_bounds
+
+
+def warp2d_strip_ref(image_pad: torch.Tensor, u: torch.Tensor, row0: int, nx_glob: int,
+                     halo: int) -> torch.Tensor:
+    """Plain PyTorch version of the strip warp (``parallel/spatial.py::
+    _warp_local``)."""
+    pad = (image_pad.shape[-2] - u.shape[-2]) // 2
+    image = image_pad[pad:pad + u.shape[-2]]
+    value, weight, in_bounds = _bilinear_local(image_pad[None], *_global_coords(u, row0),
+                                               row0, nx_glob, halo)
+    ok = in_bounds & (weight != 0)
+    return torch.where(ok, value[0] / torch.where(weight != 0, weight, 1.0), image)
+
+
+def compose_strip_ref(u_total_pad: torch.Tensor, u_inc: torch.Tensor, row0: int, nx_glob: int,
+                      halo: int) -> torch.Tensor:
+    """Plain PyTorch version of the strip compose (``parallel/spatial.py::
+    _compose_local``)."""
+    pad = (u_total_pad.shape[-2] - u_inc.shape[-2]) // 2
+    u_total = u_total_pad[:, pad:pad + u_inc.shape[-2]]
+    value, weight, in_bounds = _bilinear_local(u_total_pad, *_global_coords(u_inc, row0),
+                                               row0, nx_glob, halo)
+    warped = value / torch.where(weight != 0, weight, 1.0)
+    inc_plus = u_inc + torch.where(weight != 0, warped, 0.0)
+    return torch.where(in_bounds[None], inc_plus, u_total)
+
+
+def _launch_strip(entry: str, name: str, data_pad: torch.Tensor, u: torch.Tensor, row0: int,
+                  nx_glob: int, halo: int) -> torch.Tensor:
+    if u.device.type != "cuda":
+        raise ValueError(f"no {name} for device {u.device}")
+    _, nxl, ny = u.shape
+    pad = (data_pad.shape[-2] - nxl) // 2
+    _build.check_cuda("u", u, (2, nxl, ny), u.device)
+    _build.check_cuda("data_pad", data_pad, data_pad.shape[:-2] + (nxl + 2 * pad, ny),
+                      u.device)
+    _build.check_strip(row0, nxl, nx_glob)
+    if not 0 <= halo <= pad - 1:
+        raise ValueError(f"halo {halo} needs at least {halo + 1} pad rows a side, got {pad}")
+    out = torch.empty(data_pad.shape[:-2] + (nxl, ny), dtype=u.dtype, device=u.device)
+    _build.launch(entry, u.device, data_pad.data_ptr(), u.data_ptr(), out.data_ptr(), nxl, ny,
+                  pad, row0, nx_glob, halo)
+    kernels.LAUNCHES[name] += 1
+    return out
 
 
 def _launch(entry: str, name: str, data: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -102,3 +185,31 @@ def compose(u_total: torch.Tensor, u_inc: torch.Tensor) -> torch.Tensor:
     if u_total.dim() != 3 or u_total.shape[0] != 2:
         raise ValueError(f"u_total must be [2, nx, ny], got {tuple(u_total.shape)}")
     return _launch("of2d_compose", "compose", u_total, u_inc)
+
+
+def warp2d_strip(image_pad: torch.Tensor, u: torch.Tensor, row0: int, nx_glob: int,
+                 halo: int) -> torch.Tensor:
+    """Backward-warp one strip: ``image_pad [nxl + 2 pad, ny]`` carries
+    ``pad >= halo + 1`` halo rows a side (zeros beyond the image), ``u [2,
+    nxl, ny]`` is the strip's motion, ``row0`` the global index of its first
+    row and ``nx_glob`` the image's rows. ``pad`` is taken from the shapes.
+    The plain version on the CPU, the kernel on CUDA."""
+    if _build.on_cpu(image_pad, u):
+        return warp2d_strip_ref(image_pad, u, row0, nx_glob, halo)
+    if image_pad.dim() != 2:
+        raise ValueError(f"image_pad must be [rows, ny], got {tuple(image_pad.shape)}")
+    return _launch_strip("of2d_warp2d_strip", "warp2d_strip", image_pad, u, row0, nx_glob,
+                         halo)
+
+
+def compose_strip(u_total_pad: torch.Tensor, u_inc: torch.Tensor, row0: int, nx_glob: int,
+                  halo: int) -> torch.Tensor:
+    """Compose one strip: ``u_total_pad [2, nxl + 2 pad, ny]`` with halo
+    rows as for ``warp2d_strip``, ``u_inc [2, nxl, ny]``. The plain version
+    on the CPU, the kernel on CUDA."""
+    if _build.on_cpu(u_total_pad, u_inc):
+        return compose_strip_ref(u_total_pad, u_inc, row0, nx_glob, halo)
+    if u_total_pad.dim() != 3 or u_total_pad.shape[0] != 2:
+        raise ValueError(f"u_total_pad must be [2, rows, ny], got {tuple(u_total_pad.shape)}")
+    return _launch_strip("of2d_compose_strip", "compose_strip", u_total_pad, u_inc, row0,
+                         nx_glob, halo)

@@ -20,6 +20,18 @@ def partial_x(f: torch.Tensor) -> torch.Tensor:
     return torch.cat([first, interior, last], dim=-2)
 
 
+def partial_x_rows(fp: torch.Tensor, gi: torch.Tensor, nx: int) -> torch.Tensor:
+    """d/dx of the rows of ``fp [..., m + 2, ny]`` between its first and
+    last, a strip of an image of ``nx`` rows with one neighbour row a side:
+    central, one-sided where the global row index ``gi`` (broadcastable to
+    ``[m, ny]``) is 0 or ``nx - 1``. Equals ``partial_x`` of the image on
+    those rows."""
+    central = (fp[..., 2:, :] - fp[..., :-2, :]) * 0.5
+    first = fp[..., 2:, :] - fp[..., 1:-1, :]
+    last = fp[..., 1:-1, :] - fp[..., :-2, :]
+    return torch.where(gi == 0, first, torch.where(gi == nx - 1, last, central))
+
+
 def partial_y(f: torch.Tensor) -> torch.Tensor:
     """d/dy: central difference, one-sided at the y borders
     (reference ``src/gradients.h:21-32``)."""

@@ -43,6 +43,24 @@ def _interleaved4(terms):
     return acc[0]
 
 
+def box_mean(image: torch.Tensor, fx: int, fy: int) -> torch.Tensor:
+    """Mean over the ``fx x fy`` patches of ``[..., fx * m, fy * n]``, added
+    in the order in which XLA on the CPU rounds the JAX package's
+    ``reshape(..., m, fx, n, fy).mean(axis=(-3, -1))``: the patch row by row
+    (x offset outer, y offset inner) in one running sum; but for a 2x2
+    patch on a grid whose ``ny`` is a power of two, each row's pair first
+    and then the rows. The strip pyramid (``parallel.spatial``) takes it on
+    each strip's own shape, as the JAX package's strip downsample
+    (``spatial.py:1114``) reshapes the strip."""
+    ny = image.shape[-1]
+    c = [[image[..., a::fx, b::fy] for b in range(fy)] for a in range(fx)]
+    if fx == fy == 2 and ny & (ny - 1) == 0:
+        total = _sequential([c[a][0] + c[a][1] for a in range(fx)])
+    else:
+        total = _sequential([c[a][b] for a in range(fx) for b in range(fy)])
+    return total / (fx * fy)
+
+
 def downsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tensor:
     """Box-filter downsample ``[..., nx, ny] -> [..., nx_out, ny_out]``.
 
@@ -51,10 +69,8 @@ def downsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tens
     alike on the CPU and the GPU. The sequence is the one in which the JAX
     package's two forms round on the CPU (``opticalflow2d_tpu/ops/
     resample.py:42-66``), found by probing XLA:
-    - extents <= 4096, ``reshape(...).mean()``: the patch row by row
-      (x offset outer, y offset inner) in one running sum; but for a 2x2
-      patch on a grid whose cropped ``ny`` is a power of two, each row's
-      pair first and then the rows;
+    - extents <= 4096, ``reshape(...).mean()``: ``box_mean`` on the
+      cropped grid;
     - extents > 4096, the two box products: the x offsets first, one
       running sum of the terms scaled by ``1/fx``; then the y offsets,
       scaled by ``1/fy``, into four partial sums (offset mod 4) added
@@ -70,17 +86,12 @@ def downsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tens
     fx = nx_in // nx_out
     fy = ny_in // ny_out
     cropped = image[..., : nx_out * fx, : ny_out * fy]
+    if nx_in <= 4096 and ny_in <= 4096:
+        return box_mean(cropped, fx, fy)
+    sx, sy = 1.0 / fx, 1.0 / fy
     c = [[cropped[..., a::fx, b::fy] for b in range(fy)] for a in range(fx)]
-    if nx_in > 4096 or ny_in > 4096:
-        sx, sy = 1.0 / fx, 1.0 / fy
-        cols = [_sequential([c[a][b] * sx for a in range(fx)]) for b in range(fy)]
-        return _interleaved4([col * sy for col in cols])
-    ny_c = ny_out * fy
-    if fx == fy == 2 and ny_c & (ny_c - 1) == 0:
-        total = _sequential([c[a][0] + c[a][1] for a in range(fx)])
-    else:
-        total = _sequential([c[a][b] for a in range(fx) for b in range(fy)])
-    return total / (fx * fy)
+    cols = [_sequential([c[a][b] * sx for a in range(fx)]) for b in range(fy)]
+    return _interleaved4([col * sy for col in cols])
 
 
 def upsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tensor:

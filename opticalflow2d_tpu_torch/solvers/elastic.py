@@ -67,13 +67,17 @@ def _gs_candidate(x: torch.Tensor, b: torch.Tensor, s: SorScalars,
 
 
 @functools.lru_cache(maxsize=64)
-def _color_masks(nx: int, ny: int):
+def _color_masks(nx: int, ny: int, row0: int = 0, nx_glob: int | None = None):
     """Red ((i + j) even) and black interior masks ``[nx-2, ny-2]`` as
-    numpy arrays (cached)."""
-    i = np.arange(1, nx - 1)[:, None]
+    numpy arrays (cached), for rows ``row0 ..`` of an image of ``nx_glob``
+    rows (the whole image by default): the colours and the interior are
+    global."""
+    nx_glob = nx if nx_glob is None else nx_glob
+    i = np.arange(1, nx - 1)[:, None] + row0
     j = np.arange(1, ny - 1)[None, :]
-    red = (i + j) % 2 == 0
-    return red, ~red
+    interior = (i >= 1) & (i <= nx_glob - 2)
+    even = (i + j) % 2 == 0
+    return even & interior, ~even & interior
 
 
 def _masked_update(x: torch.Tensor, cand: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -83,9 +87,15 @@ def _masked_update(x: torch.Tensor, cand: torch.Tensor, mask: torch.Tensor) -> t
 
 
 def sor_sweep(x: torch.Tensor, b: torch.Tensor, mu: float, lam: float, omega: float,
-              reference_stencil: bool = True, ordering: str = "redblack") -> torch.Tensor:
+              reference_stencil: bool = True, ordering: str = "redblack", row0: int = 0,
+              nx_glob: int | None = None) -> torch.Tensor:
     """One SOR sweep of the Navier-Lame system ``A x = b`` on the interior
     points of ``x [2, nx, ny]``; the borders are untouched.
+
+    ``row0``/``nx_glob`` (red-black only): ``x`` holds rows ``row0 ..`` of an
+    image of ``nx_glob`` rows, a strip with its halo rows; the colours and
+    the interior are the image's, and the strip's own first and last rows
+    are not swept.
 
     ``"lexicographic"``: for the order i outer, j inner, the update at
     (i, j) reads updated values at (i-1, j-1), (i-1, j), (i-1, j+1),
@@ -95,13 +105,15 @@ def sor_sweep(x: torch.Tensor, b: torch.Tensor, mu: float, lam: float, omega: fl
     s = sor_scalars(mu, lam, omega)
     nx, ny = x.shape[-2], x.shape[-1]
     if ordering == "redblack":
-        red_np, black_np = _color_masks(nx, ny)
+        red_np, black_np = _color_masks(nx, ny, row0, nx_glob)
         red = torch.from_numpy(red_np).to(x.device)
         black = torch.from_numpy(black_np).to(x.device)
         x = _masked_update(x, _gs_candidate(x, b, s, reference_stencil), red)
         return _masked_update(x, _gs_candidate(x, b, s, reference_stencil), black)
     if ordering != "lexicographic":
         raise ValueError(f"unknown SOR ordering {ordering!r}")
+    if nx_glob is not None:
+        raise ValueError("the lexicographic sweep runs on the whole image only")
     i = torch.arange(1, nx - 1, device=x.device)[:, None]
     j = torch.arange(1, ny - 1, device=x.device)[None, :]
     diag = 2 * i + j
@@ -112,8 +124,10 @@ def sor_sweep(x: torch.Tensor, b: torch.Tensor, mu: float, lam: float, omega: fl
 
 
 def elastic_step(u: torch.Tensor, d: Derivatives, mu: float, lam: float, omega: float,
-                 reference_stencil: bool = True, ordering: str = "redblack") -> torch.Tensor:
+                 reference_stencil: bool = True, ordering: str = "redblack", row0: int = 0,
+                 nx_glob: int | None = None) -> torch.Tensor:
     """One elastic iteration: the force at the current motion, then one SOR
-    sweep on the motion itself (reference ``OpticalFlowElastic.cpp:13-19``)."""
+    sweep on the motion itself (reference ``OpticalFlowElastic.cpp:13-19``);
+    ``row0``/``nx_glob`` as for ``sor_sweep``."""
     f = lssd_force(d, u)
-    return sor_sweep(u, f, mu, lam, omega, reference_stencil, ordering)
+    return sor_sweep(u, f, mu, lam, omega, reference_stencil, ordering, row0, nx_glob)

@@ -33,6 +33,11 @@ from opticalflow2d_tpu_torch.kernels.warp_fused import (
     compose, compose_ref, warp2d, warp2d_ref)
 from opticalflow2d_tpu_torch.solvers.base import derivatives
 from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
+from opticalflow2d_tpu_torch.kernels import diffusion_block as k_diff
+from opticalflow2d_tpu_torch.kernels import elastic_block as k_el
+from opticalflow2d_tpu_torch.kernels import fluid_fused as k_fl
+from opticalflow2d_tpu_torch.kernels import warp_fused as k_wf
+from opticalflow2d_tpu_torch.parallel import make_mesh, make_register_sp, spatial
 
 pytestmark = pytest.mark.cuda
 
@@ -332,3 +337,121 @@ def test_forced_two_pass_route_equals_default_gpu_run(cuda):
     assert torch.equal(got.motion, want.motion)
     assert kernels.LAUNCHES["fluid_sweep_max"] == kernels.LAUNCHES["fluid_euler"] == iterations
     assert kernels.LAUNCHES["fluid_iter"] == 0
+
+
+# --- the strip kernels K1-K4 (parallel.spatial) ---------------------------------
+
+STRIP_SHAPES = [(256, 256), (100, 77)]  # 4 strips: nxl 64, and a ragged 25
+
+
+def _strip_inputs(dev, shape, *fields, pad):
+    """Each field cut into 4 strips and padded as the driver pads them."""
+    return [spatial._halo_pad(spatial._split(f, [dev] * 4), pad) for f in fields]
+
+
+def _strip_calls(fn, nx, *padded):
+    nxl = nx // 4
+    return [fn(*(p[s] for p in padded), s * nxl, nx) for s in range(4)]
+
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+@pytest.mark.parametrize("k,n_take", [(1, 1), (5, 5), (8, 8), (8, 3)])
+def test_diffusion_block_strip_matches_plain_and_dense(cuda, shape, k, n_take):
+    """n_take < k: the rerun of a stop inside a block, on the block's pad."""
+    _, _, g, u = _inputs(*shape, cuda)
+    pad = k_diff.required_pad(k)
+    up, gp = _strip_inputs(cuda, shape, u, g, pad=pad)
+    got = _strip_calls(lambda a, b, r0, nx: k_diff.diffusion_block_strip(
+        a, b, r0, nx, 0.1, n_take, pad), shape[0], up, gp)
+    want = _strip_calls(lambda a, b, r0, nx: k_diff.diffusion_block_strip_ref(
+        a, b, r0, nx, 0.1, n_take, pad), shape[0], up, gp)
+    dense, dense_sums = diffusion_block(u, g, 0.1, n_take)
+    for (o, sm), (o_ref, sm_ref) in zip(got, want):
+        assert _max_abs(o, o_ref) <= FIELD_TOL
+        np.testing.assert_allclose(npy(sm), npy(sm_ref), rtol=SUMS_RTOL)
+    assert torch.equal(torch.cat([o for o, _ in got], dim=1), dense)
+    np.testing.assert_allclose(npy(sum(sm for _, sm in got)), npy(dense_sums), rtol=SUMS_RTOL)
+
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+@pytest.mark.parametrize("k,ref_stencil", [(1, True), (2, False), (4, True), (4, False)])
+def test_elastic_block_strip_matches_plain_and_dense(cuda, shape, k, ref_stencil):
+    _, _, g, u = _inputs(*shape, cuda)
+    u = (torch.tanh(u) * 0.5).contiguous()
+    up, gp = _strip_inputs(cuda, shape, u, g, pad=k_el.required_pad(k))
+    args = (0.5, 0.0, 0.66, ref_stencil, k)
+    got = _strip_calls(lambda a, b, r0, nx: k_el.elastic_block_strip(a, b, r0, nx, *args),
+                       shape[0], up, gp)
+    want = _strip_calls(lambda a, b, r0, nx: k_el.elastic_block_strip_ref(a, b, r0, nx, *args),
+                        shape[0], up, gp)
+    dense, dense_sums = elastic_block(u, g, *args)
+    for (o, sm), (o_ref, sm_ref) in zip(got, want):
+        assert _max_abs(o, o_ref) <= FIELD_TOL
+        np.testing.assert_allclose(npy(sm), npy(sm_ref), rtol=SUMS_RTOL)
+    assert torch.equal(torch.cat([o for o, _ in got], dim=1), dense)
+    np.testing.assert_allclose(npy(sum(sm for _, sm in got)), npy(dense_sums), rtol=SUMS_RTOL)
+
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+@pytest.mark.parametrize("ref_stencil,bug", [(True, False), (False, False), (True, True)])
+def test_fluid_iter_strip_matches_plain_and_dense(cuda, shape, ref_stencil, bug):
+    _, _, g, u = _inputs(*shape, cuda)
+    u = (torch.tanh(u) * 0.5).contiguous()
+    vel = (torch.tanh(u.flip(1)) * 0.3).contiguous()
+    padded = _strip_inputs(cuda, shape, u, vel, g, pad=k_fl.FLUID_PAD)
+    args = (0.25, 0.0, 0.66, ref_stencil, bug)
+    got = _strip_calls(lambda a, b, c, r0, nx: k_fl.fluid_iter_strip(a, b, c, r0, nx, *args),
+                       shape[0], *padded)
+    want = _strip_calls(lambda a, b, c, r0, nx: k_fl.fluid_iter_strip_ref(a, b, c, r0, nx,
+                                                                         *args),
+                        shape[0], *padded)
+    dense = fluid_iter(u, vel, g, *args)
+    for o, o_ref in zip(got, want):
+        assert _max_abs(o[0], o_ref[0]) <= FIELD_TOL and _max_abs(o[1], o_ref[1]) <= FIELD_TOL
+        np.testing.assert_allclose(npy(o[2]), npy(o_ref[2]), rtol=1e-6)
+    for i in range(2):
+        assert torch.equal(torch.cat([o[i] for o in got], dim=1), dense[i])
+    assert torch.equal(torch.stack([o[2] for o in got]).max(), dense[2])
+
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+@pytest.mark.parametrize("halo,scale", [(2, 0.9), (5, 2.4), (2, 40.0)])
+def test_warp_and_compose_strip_match_plain(cuda, shape, halo, scale):
+    """scale < halo / 2: inside the contract, also equal to B3's rows; at
+    40 px mostly outside it, where a sample takes no taps."""
+    imov, _, _, u = _inputs(*shape, cuda)
+    inc = (torch.tanh(u) * scale).contiguous()
+    tot = (u * 0.5).contiguous()
+    pad = spatial._gather_pad(halo)
+    img_pad, tot_pad = _strip_inputs(cuda, shape, imov, tot, pad=pad)
+    inc_s = spatial._split(inc, [cuda] * 4)
+    nxl = shape[0] // 4
+    for fn, ref, data, dense_fn, dense_data in (
+            (k_wf.warp2d_strip, k_wf.warp2d_strip_ref, img_pad, warp2d, imov),
+            (k_wf.compose_strip, k_wf.compose_strip_ref, tot_pad, compose, tot)):
+        got = [fn(data[s], inc_s[s], s * nxl, shape[0], halo) for s in range(4)]
+        for s in range(4):
+            want = ref(data[s], inc_s[s], s * nxl, shape[0], halo)
+            assert _max_abs(got[s], want) <= FIELD_TOL
+        if scale < halo / 2:
+            assert torch.equal(torch.cat(got, dim=-2), dense_fn(dense_data, inc))
+
+
+@pytest.mark.parametrize("family,kw", [
+    ("diffusion", dict(alpha=0.1, block_k=8)),
+    ("elastic", dict(mu=0.5, lam=0.0, block_k=4)),
+    ("fluid", dict(mu=0.25, lam=0.0)),
+])
+def test_register_sp_gpu_matches_cpu(cuda, family, kw):
+    iref, imov, _, _ = _inputs(128, 128, cuda)
+    args = dict(niter=[100, 100, 100], nscales=2, nrefine=2, halo=5, **kw)
+    cpu = make_register_sp(make_mesh(x=4, devices=["cpu"] * 4), family, **args)(
+        iref.cpu(), imov.cpu())
+    kernels.reset_launches()
+    gpu = make_register_sp(make_mesh(x=4, devices=[cuda] * 4), family, **args)(iref, imov)
+    strip = {"diffusion": "diffusion_block_strip", "elastic": "elastic_block_strip",
+             "fluid": "fluid_iter_strip"}[family]
+    assert kernels.LAUNCHES[strip] > 0 and kernels.LAUNCHES["compose_strip"] > 0
+    assert kernels.LAUNCHES["warp2d_strip"] > 0
+    assert gpu.iterations == cpu.iterations and gpu.regrids == cpu.regrids
+    assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
