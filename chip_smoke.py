@@ -30,7 +30,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    diffusion strip at k = 8 and at a rerun of 3 on the k = 8 pad, the
    elastic strip at k = 1, 2, 4 with either stencil, the fluid strip with
    either stencil and either maxabs, warp and compose inside the
-   displacement contract and (plain version only) far outside it.
+   displacement contract and (plain version only) far outside it; the
+   demons strips K5-K7 at halo 5 and kernelwidth 5 and 11, each on its
+   exact pad, with displacements of up to 2 px (also bit for bit against
+   B10-B12's rows) and of up to +-40 px (plain version only).
 3. The main paths through the session API at 4096^2, each with the launch
    counts set to 0 just before it and read just after:
    a. diffusion on a pair of three blobs, 5 levels (SSD reduction >= 0.9,
@@ -53,35 +56,39 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
       must equal the 16384^2 level's iterations, B7's the coarser levels';
       it prints the peak device memory. The pair is built on the card.
    g. sp_diffusion (alpha 0.1, block_k 8), sp_elastic ([0.5, 0],
-      block_k 4) and sp_fluid ([0.25, 0]): make_register_sp on
-      make_mesh(x=4) over one card, 4096^2 in 4 strips of 1024 rows, on
-      the tiled pair, nscales 2, nrefine 2, halo 5 (fluid: 32, see
-      SP_FLUID_HALO): the strip kernels K1, K2, K3 and K4. Each must stay
-      inside its contract (the final motion's in-bounds floor offsets
-      within the halo) and launch its strip
-      kernels; beside each, its difference and counts against the dense
-      run of the family on the same pair (3d, 3e, and a dense diffusion
-      run on the tiled pair), reported, not gated.
+      block_k 4), sp_fluid ([0.25, 0]), sp_thirion ([1, 0.25, 2, 2, 5]:
+      K5) and sp_diffeo ([0.25, 1, 2, 2, 5]: K6, the squarings on K4,
+      K7): make_register_sp on make_mesh(x=4) over one card, 4096^2 in 4
+      strips of 1024 rows, on the tiled pair, nscales 2, nrefine 2, halo 5
+      (fluid: 32, see SP_FLUID_HALO): the strip kernels K1-K7. Each must
+      stay inside its contract (the final motion's in-bounds floor offsets
+      within the halo) and launch its strip kernels, the demons ones 4
+      times an iteration; beside each, its difference and counts against
+      the dense run of the family on the same pair (3d, 3e, and dense
+      diffusion, Thirion and diffeomorphic runs on the tiled pair),
+      reported, not gated.
    Every path needs SSD reduction >= 0.9 and a finite motion; the phase
    prints iterations, regrids, wall time, host reads per level and
    launches. The tiled pair keeps its sigma = 6 px blobs at every size;
    the three-blob pair's widths scale with n, which leaves fluid's
    increment so small at 512^2 and above that every step is skipped.
    Three levels put the coarsest at 1024^2, where the blobs are 1.5 px.
-4. Profiles of runs 3c, 3e and the three 3g runs, and of the dense
-   elastic and tiled diffusion runs: the device's busy share and the host
-   syncs.
+4. Profiles of runs 3c, 3e and the five 3g runs (sp_thirion and sp_diffeo
+   capped at DEMONS_PROFILE_NITER iterations a level), and of the dense
+   elastic and tiled diffusion runs: the device's busy share, the host
+   syncs and the device time of the concatenations (the halo pads).
 5. Slice parity at 512^2 for each path: the CPU (plain versions) against
    the GPU (kernels), motion <= 1e-5 px and equal iteration and regrid
    counts at every level; and the fluid run again with every level on the
    two-pass route (its extent lowered to 0), equal to the default GPU run
-   bit for bit, with equal counts; and the three sp_* paths at 512^2 in 4
+   bit for bit, with equal counts; and the five sp_* paths at 512^2 in 4
    strips, CPU against GPU, with the same gates.
 6. Times at 4096^2: median of 20 CUDA-event-timed runs of 10 calls each,
    of each kernel and of its plain version, and its bound; and of one
    fluid iteration by each route (B7 and the plain Euler tail; B8, the
    gate and B9); and of each strip kernel on one 1024x4096 strip of the
-   4096^2 grid, its bound counting the halo rows it reads.
+   4096^2 grid (K1-K4 padded with 8 rows, K5-K7 with their exact reach at
+   halo 5), its bound counting the halo rows it reads.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -105,6 +112,8 @@ from opticalflow2d_tpu_torch.kernels.demons_fused import (
     compose_smooth, compose_smooth_ref, demons_correspondence, demons_correspondence_ref)
 from opticalflow2d_tpu_torch.kernels.demons_onepass import (
     thirion_onepass, thirion_onepass_ref)
+from opticalflow2d_tpu_torch.kernels import demons_fused as k_df
+from opticalflow2d_tpu_torch.kernels import demons_onepass as k_op
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block, diffusion_block_ref, stack_derivs)
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
@@ -143,6 +152,10 @@ PARITY_NSCALES = 2
 NITER = 400  # at every level
 DEMONS_PARITY_NITER = 200  # at every level of the CPU-timed demons parity runs
 SP_PARITY_NITER = 200  # and of the strip paths' parity runs
+# The strip demons profiles' cap a level: sp_diffeo runs 400 iterations on
+# five of its six levels, and the profiler's tables of its 2014 iterations
+# took about 200 s on an H100; 100 keeps the steady loop in the window.
+DEMONS_PROFILE_NITER = 100
 SEED = 0
 KERNEL_SHAPES = ((4096, 4096), (2048, 2048), (1000, 777))
 # The fluid_16k path's levels past 4096: 16384^2 runs B3, B5, B8 and B9,
@@ -175,9 +188,23 @@ PATHS = (
 )
 
 DIFFUSION_TILED = ("diffusion_tiled", Method.DIFFUSION, [ALPHA], "tiled", TILED_NSCALES)
+# The dense runs beside the strip paths, on their pair, by family.
+THIRION_PARAMS = [1.0, 0.25, 2.0, 2.0, 5]  # sigma_i, sigma_x, sigma_d, sigma_f, kernelwidth
+DIFFEO_PARAMS = [0.25, 1.0, 2.0, 2.0, 5]
+# thirion_onepass's sigma_i, sigma_x, sigma_fluid, sigma_diffusion, kernelwidth.
+ONEPASS_ARGS = (THIRION_PARAMS[0], THIRION_PARAMS[1], THIRION_PARAMS[3], THIRION_PARAMS[2],
+                THIRION_PARAMS[4])
+TILED_DENSE = {
+    "diffusion": DIFFUSION_TILED,
+    "thirions": ("thirion_tiled", Method.THIRIONS_DEMONS, THIRION_PARAMS + [0], "tiled",
+                 TILED_NSCALES),
+    "diffeo": ("diffeo_tiled", Method.DIFFEOMORPHIC_DEMONS, DIFFEO_PARAMS, "tiled",
+               TILED_NSCALES),
+}
 
 # The strip-parallel paths: (name, family, make_register_sp parameters, the
 # method and regparams of the dense run of the family on the same pair).
+DEMONS_KEYS = ("sigma_i", "sigma_x", "sigma_diffusion", "sigma_fluid", "kernelwidth")
 SP_PATHS = (
     ("sp_diffusion", "diffusion", dict(alpha=ALPHA, block_k=8, halo=SP_HALO), Method.DIFFUSION,
      [ALPHA]),
@@ -185,10 +212,16 @@ SP_PATHS = (
      [0.5, 0.0]),
     ("sp_fluid", "fluid", dict(mu=0.25, lam=0.0, halo=SP_FLUID_HALO), Method.FLUID,
      [0.25, 0.0]),
+    ("sp_thirion", "thirions", dict(zip(DEMONS_KEYS, THIRION_PARAMS), halo=SP_HALO),
+     Method.THIRIONS_DEMONS, THIRION_PARAMS + [0]),
+    ("sp_diffeo", "diffeo", dict(zip(DEMONS_KEYS, DIFFEO_PARAMS), halo=SP_HALO),
+     Method.DIFFEOMORPHIC_DEMONS, DIFFEO_PARAMS),
 )
-# The strip kernel each strip path must launch, beside warp and compose.
-SP_KERNEL = {"diffusion": "diffusion_block_strip", "elastic": "elastic_block_strip",
-             "fluid": "fluid_iter_strip"}
+# The strip kernels each strip path must launch, beside warp and compose;
+# the demons launch theirs once a strip an iteration.
+SP_KERNEL = {"diffusion": ("diffusion_block_strip",), "elastic": ("elastic_block_strip",),
+             "fluid": ("fluid_iter_strip",), "thirions": ("demons_onepass_strip",),
+             "diffeo": ("demons_correspondence_strip", "compose_smooth_strip")}
 
 KERNELS = {
     "diffusion_block": ("cuda", "opticalflow2d_tpu_torch/csrc/diffusion_block.cu",
@@ -227,6 +260,12 @@ KERNELS = {
                      "opticalflow2d_tpu/pallas_kernels/warp_fused.py:263"),
     "compose_strip": ("cuda", "opticalflow2d_tpu_torch/csrc/warp_gather.cu",
                       "opticalflow2d_tpu/pallas_kernels/warp_fused.py:278"),
+    "demons_onepass_strip": ("cuda", "opticalflow2d_tpu_torch/csrc/demons_onepass.cu",
+                             "opticalflow2d_tpu/pallas_kernels/demons_onepass.py:310"),
+    "demons_correspondence_strip": ("cuda", "opticalflow2d_tpu_torch/csrc/demons_fused.cu",
+                                    "opticalflow2d_tpu/pallas_kernels/demons_fused.py:401"),
+    "compose_smooth_strip": ("cuda", "opticalflow2d_tpu_torch/csrc/demons_fused.cu",
+                             "opticalflow2d_tpu/pallas_kernels/demons_fused.py:481"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
@@ -247,12 +286,15 @@ KW = 5  # the demons kernelwidth of the main paths
 ELASTIC_K = 4
 # A strip kernel does its dense kernel's work on the strip's pixels and
 # also reads the halo rows of its padded inputs (STRIP_PADDED planes, 8 rows
-# a side at the timed settings).
+# a side at the timed settings, the demons strips their exact reach).
 STRIP_OF = {"diffusion_block_strip": "diffusion_block", "elastic_block_strip": "elastic_block",
             "fluid_iter_strip": "fluid_iter", "warp2d_strip": "warp2d",
-            "compose_strip": "compose"}
+            "compose_strip": "compose", "demons_onepass_strip": "demons_onepass",
+            "demons_correspondence_strip": "demons_correspondence",
+            "compose_smooth_strip": "compose_smooth"}
 STRIP_PADDED = {"diffusion_block_strip": 5, "elastic_block_strip": 5, "fluid_iter_strip": 7,
-                "warp2d_strip": 1, "compose_strip": 2}
+                "warp2d_strip": 1, "compose_strip": 2, "demons_onepass_strip": 4,
+                "demons_correspondence_strip": 4, "compose_smooth_strip": 4}
 PLANES = {"diffusion_block": 7, "diffusion_step": 7, "warp2d": 4, "compose": 6,
           "logger_norms": 4, "demons_onepass": 6, "demons_correspondence": 6,
           "compose_smooth": 6, "elastic_block": 7, "fluid_iter": 11, "fluid_metrics": 4,
@@ -485,6 +527,51 @@ def check_strips(err: dict, dev, gen: torch.Generator, iref, imov) -> None:
                           row0=s * nxl)
                 if contract == "inside":
                     check_rows(name, outs, dense_fn(dense_data, inc), shape, halo=halo)
+    del ip, tp, total
+    check_demons_strips(err, dev, imov, iref, (torch.tanh(u) * 2.0).contiguous(), far)
+
+
+def check_demons_strips(err: dict, dev, imov, iref, small, far) -> None:
+    """K5-K7 on SP_STRIPS strips at halo SP_HALO, kernelwidth 5 and 11, each
+    padded by its exact reach: displacements of up to 2 px (inside the
+    contract) against the plain versions and, concatenated, bit for bit
+    against B10-B12; the +-40 px field (mostly outside it) against the plain
+    versions only."""
+    nx = imov.shape[0]
+    shape, nxl, halo = tuple(imov.shape), nx // SP_STRIPS, SP_HALO
+    c_small = (small.flip(1) * 0.5).contiguous()
+    for kw in (KW, 11):
+        onepass = (*ONEPASS_ARGS[:4], kw)
+        corr = (DIFFEO_PARAMS[0], DIFFEO_PARAMS[1], DIFFEO_PARAMS[3], kw)
+        sd = DIFFEO_PARAMS[2]
+        cases = (
+            ("demons_onepass_strip", k_op.thirion_onepass_strip, k_op.thirion_onepass_strip_ref,
+             k_op.onepass_strip_pad(halo, kw), onepass,
+             lambda f: (imov, iref, f), lambda f: thirion_onepass(imov, iref, f, *onepass)),
+            ("demons_correspondence_strip", k_df.demons_correspondence_strip,
+             k_df.demons_correspondence_strip_ref, k_df.correspondence_strip_pad(halo, kw), corr,
+             lambda f: (imov, iref, f), lambda f: demons_correspondence(imov, iref, f, *corr)),
+            ("compose_smooth_strip", k_df.compose_smooth_strip, k_df.compose_smooth_strip_ref,
+             k_df.compose_smooth_strip_pad(halo, kw), (sd, kw),
+             lambda f: (small, f), lambda f: compose_smooth(small, f, sd, kw)),
+        )
+        for name, fn, ref, pad, params, fields, dense in cases:
+            field_in = c_small if name == "compose_smooth_strip" else small
+            for contract, f in (("inside", field_in), ("outside", far)):
+                padded = strip_inputs(dev, pad, *fields(f))
+                outs = []
+                for s in range(SP_STRIPS):
+                    args = (*(p[s] for p in padded), s * nxl, nx, *params, halo, pad)
+                    outs.append(fn(*args))
+                    check(err, name, outs[-1], ref(*args), shape, kw=kw, halo=halo, pad=pad,
+                          contract=contract, row0=s * nxl)
+                if contract == "inside":
+                    dense_out = dense(f)
+                    check_rows(name, outs, dense_out, shape, kw=kw, halo=halo)
+                    require(torch.equal(torch.cat(outs, dim=-2), dense_out),
+                            f"{name} {shape} kw {kw}: the strips are not B10-B12's rows bit "
+                            f"for bit inside the contract")
+                del padded, outs
 
 
 def check_shape(err: dict, dev, gen: torch.Generator, iref, imov, every: bool) -> None:
@@ -681,19 +768,19 @@ def phase_main(dev) -> dict:
             require(any(t.regrids for t in res.traces),
                     f"{path}: no regrid even at threshold {REGRID_FALLBACK}")
     launches["fluid_16k"] = drive_huge(dev)
-    path, method, regparams, pair, nscales = DIFFUSION_TILED
-    launches[path], dense["diffusion"] = drive_main(dev, path, method, regparams, nscales,
-                                                    *pair_on(dev, pair, N_MAIN))
+    for family, (path, method, regparams, pair, nscales) in TILED_DENSE.items():
+        launches[path], dense[family] = drive_main(dev, path, method, regparams, nscales,
+                                                   *pair_on(dev, pair, N_MAIN))
     for name, family, params, _, _ in SP_PATHS:
         launches[name] = drive_sp(dev, name, family, params, dense[family])
     return launches
 
 
-def sp_solver(devices, family: str, params: dict, nscales: int):
+def sp_solver(devices, family: str, params: dict, nscales: int, niter: int = NITER):
     """make_register_sp at the settings of the strip paths, on SP_STRIPS
     strips over ``devices``."""
     return make_register_sp(make_mesh(x=SP_STRIPS, devices=devices), family,
-                            niter=[NITER] * (nscales + 1), nscales=nscales, nrefine=NREFINE,
+                            niter=[niter] * (nscales + 1), nscales=nscales, nrefine=NREFINE,
                             **params)
 
 
@@ -712,9 +799,13 @@ def max_floor_offset(u: torch.Tensor) -> int:
 def sp_host_reads(family: str, iterations: int) -> int:
     """Device-to-host reads of a strip level solve: the summed Logger sums
     once a block (8 diffusion or 4 elastic iterations); fluid once an
-    iteration (the Logger error and the minimum Jacobian determinant)."""
-    if family == "fluid":
+    iteration (the Logger error and the minimum Jacobian determinant);
+    the demons once an iteration (the Logger error), diffeomorphic twice
+    (and the exp map's maxabs)."""
+    if family in ("fluid", "thirions"):
         return iterations
+    if family == "diffeo":
+        return 2 * iterations
     return -(-iterations // (8 if family == "diffusion" else 4))
 
 
@@ -736,7 +827,7 @@ def drive_sp(dev, name: str, family: str, params: dict, dense) -> dict:
     red = float(ssd_reduction(iref, imov, res.motion))
     finite = bool(torch.isfinite(res.motion).all())
     offset = max_floor_offset(res.motion)
-    used = (SP_KERNEL[family], "warp2d_strip", "compose_strip")
+    used = SP_KERNEL[family] + ("warp2d_strip", "compose_strip")
     reads = [sp_host_reads(family, n) for n in res.iterations]
     emit({"phase": "main", "path": name, "shape": [N_MAIN, N_MAIN], "strips": SP_STRIPS,
           "nscales": TILED_NSCALES, "params": params, "wall_s": wall,
@@ -754,6 +845,11 @@ def drive_sp(dev, name: str, family: str, params: dict, dense) -> dict:
     require(offset <= params["halo"],
             f"{name}: floor offset {offset} outside the halo {params['halo']}")
     require(all(launches[k] > 0 for k in used), f"{name}: launched no {used}: {launches}")
+    if family in ("thirions", "diffeo"):
+        want = SP_STRIPS * sum(res.iterations)
+        require(all(launches[k] == want for k in SP_KERNEL[family]),
+                f"{name}: {SP_KERNEL[family]} launches {launches} against {want} "
+                f"(strips x iterations)")
     return launches
 
 
@@ -794,11 +890,16 @@ def profile_run(path: str, run) -> None:
                  key=lambda r: -r.self_device_time_total)[:10]
     syncs = sum(r.count for r in rows if r.key in ("cudaStreamSynchronize",
                                                    "cudaDeviceSynchronize"))
+    # Device time of the concatenations: the strips' halo pads, with the
+    # pyramid's and the gathers' copies.
+    cat_us = sum(r.self_device_time_total for r in rows
+                 if r.device_type.name == "CUDA" and "Cat" in r.key)
     emit({"phase": "profile", "path": path, "wall_s": profiled_wall,
           "device_ms": device_us / 1e3, "busy_share": device_us / 1e6 / profiled_wall,
           "iterations": sum(iterations), "regrids": sum(regrids),
           "stream_syncs": syncs,
           "syncs_per_iteration": syncs / sum(iterations),
+          "cat_ms": cat_us / 1e3, "cat_share": cat_us / max(device_us, 1e-9),
           "top": [{"name": r.key[:60], "ms": r.self_device_time_total / 1e3,
                    "count": r.count} for r in top]})
 
@@ -817,10 +918,12 @@ def phase_profile(dev, path: str) -> None:
 
 
 def phase_profile_sp(dev, name: str) -> None:
-    """A strip-parallel path (SP_PATHS) under the profiler."""
+    """A strip-parallel path (SP_PATHS) under the profiler; the demons
+    paths with DEMONS_PROFILE_NITER iterations a level at most."""
     _, family, params, _, _ = next(p for p in SP_PATHS if p[0] == name)
     iref, imov = tiled_pair(N_MAIN, dev)
-    solve = sp_solver([dev] * SP_STRIPS, family, params, TILED_NSCALES)
+    niter = DEMONS_PROFILE_NITER if family in ("thirions", "diffeo") else NITER
+    solve = sp_solver([dev] * SP_STRIPS, family, params, TILED_NSCALES, niter)
 
     def run():
         res = solve(iref, imov)
@@ -892,7 +995,8 @@ def parity_sp(dev, name: str, family: str, params: dict) -> dict:
     require(cpu.iterations == gpu.iterations,
             f"{name}: iterations differ: {cpu.iterations} vs {gpu.iterations}")
     require(cpu.regrids == gpu.regrids, f"{name}: regrids differ: {cpu.regrids} vs {gpu.regrids}")
-    require(launches[SP_KERNEL[family]] > 0, f"{name}: no {SP_KERNEL[family]} launch")
+    require(all(launches[k] > 0 for k in SP_KERNEL[family]),
+            f"{name}: no {SP_KERNEL[family]} launch")
     return launches
 
 
@@ -1033,11 +1137,21 @@ def strip_bound(name: str, nxl: int, ny: int, pad: int) -> dict:
 def strip_times(dev, imov, g, u, v) -> dict:
     """Each strip kernel, one launch at a time on strip 1 of the 4096^2 grid
     cut into SP_STRIPS strips (1024 x 4096, padded with 8 halo rows a
-    side), against its plain version."""
+    side; the demons strips with their exact reach), against its plain
+    version."""
     n, s, pad = N_MAIN, 1, 8
     nxl = n // SP_STRIPS
     row0 = s * nxl
     up, vp, gp, ip = (x[s] for x in strip_inputs(dev, pad, u, v, g, imov))
+    iref = imov.flip(0).contiguous()
+    # The demons strips at SP_HALO and kernelwidth KW, each on its exact reach.
+    pads = {"demons_onepass_strip": k_op.onepass_strip_pad(SP_HALO, KW),
+            "demons_correspondence_strip": k_df.correspondence_strip_pad(SP_HALO, KW),
+            "compose_smooth_strip": k_df.compose_smooth_strip_pad(SP_HALO, KW)}
+    ia5, ir5, v5 = (x[s] for x in strip_inputs(dev, pads["demons_onepass_strip"], imov, iref, v))
+    ia6, ir6, v6 = (x[s] for x in strip_inputs(dev, pads["demons_correspondence_strip"], imov,
+                                                iref, v))
+    u7, c7 = (x[s] for x in strip_inputs(dev, pads["compose_smooth_strip"], u, v))
     v_strip = spatial._split(v, [dev] * SP_STRIPS)[s]
     vel_pad = (vp.flip(1) * 0.5).contiguous()
     pairs = {
@@ -1051,15 +1165,24 @@ def strip_times(dev, imov, g, u, v) -> dict:
                          (ip, v_strip, row0, n, SP_HALO)),
         "compose_strip": (k_wf.compose_strip, k_wf.compose_strip_ref,
                           (up, v_strip, row0, n, SP_HALO)),
+        "demons_onepass_strip": (k_op.thirion_onepass_strip, k_op.thirion_onepass_strip_ref,
+                                 (ia5, ir5, v5, row0, n, *ONEPASS_ARGS, SP_HALO)),
+        "demons_correspondence_strip": (
+            k_df.demons_correspondence_strip, k_df.demons_correspondence_strip_ref,
+            (ia6, ir6, v6, row0, n, DIFFEO_PARAMS[0], DIFFEO_PARAMS[1], DIFFEO_PARAMS[3], KW,
+             SP_HALO)),
+        "compose_smooth_strip": (k_df.compose_smooth_strip, k_df.compose_smooth_strip_ref,
+                                 (u7, c7, row0, n, DIFFEO_PARAMS[2], KW, SP_HALO)),
     }
     times = {}
     for name, (kern, plain, args) in pairs.items():
         # No PyTorch call computes these either: see phase_times.
+        p = pads.get(name, pad)
         t = {"ms": median_ms(lambda: kern(*args)), "plain_ms": median_ms(lambda: plain(*args)),
-             **strip_bound(name, nxl, n, pad), "library_ms": None}
+             **strip_bound(name, nxl, n, p), "library_ms": None}
         times[name] = t
-        emit({"phase": "times", "kernel": name, "shape": [nxl, n], "row0": row0, "pad": pad,
-              **t})
+        emit({"phase": "times", "kernel": name, "shape": [nxl, n], "row0": row0, "pad": p,
+              **({"kernelwidth": KW, "halo": SP_HALO} if name in pads else {}), **t})
     return times
 
 

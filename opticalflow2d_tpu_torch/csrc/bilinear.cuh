@@ -7,12 +7,19 @@
 //
 // Weights and sums in the order of the plain version
 // (kernels/warp_fused.py::bilinear); with -fmad=false they round alike.
+//
+// On a strip of the strip-parallel driver (rows.cuh) the taps are read from
+// the pre-padded strip instead, under the strips' displacement contract
+// (strip_taps), shared by the strip warp and compose (warp_gather.cu) and
+// the demons strip kernels (demons_stages.cuh).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -65,6 +72,29 @@ __device__ __forceinline__ float bilinear_value(const float* __restrict__ d,
 __device__ __forceinline__ float bilinear_sample(const float* __restrict__ d,
                                                  const Bilinear& b) {
   return b.weight != 0.f ? bilinear_value(d, b) / b.weight : 0.f;
+}
+
+// Move the taps of b, the sample of global pixel (gi, j), into the padded
+// strip of rows r. False, and the sample's value is 0, where a floor offset
+// rx = dx - gi or ry = dy - j lies outside [-halo, halo] (the contract of
+// parallel/spatial.py::_bilinear_local, the jnp strip route of the TPU
+// package, spatial.py:262-315), or where a tap row lies outside the padded
+// strip (only for rows a kernel computes past the reach of the rows it owns).
+__device__ __forceinline__ bool strip_taps(Bilinear& b, int gi, int j, const Rows& r, int ny,
+                                           int halo) {
+  const int rx = b.dx - gi, ry = b.dy - j;
+  if (rx < -halo || rx > halo || ry < -halo || ry > halo) return false;
+  const int lx = b.dx - r.row0;
+  if (lx < -r.pad || lx + 1 >= r.nxl + r.pad) return false;
+  const size_t x0 = r.in_row(lx, ny);
+  const size_t x1 = x0 + ny;
+  const int y0 = min(max(b.dy, 0), ny - 1);
+  const int y1 = b.dy >= ny - 1 ? ny - 1 : max(b.dy + 1, 0);
+  b.p00 = x0 + y0;
+  b.p10 = x1 + y0;
+  b.p01 = x0 + y1;
+  b.p11 = x1 + y1;
+  return true;
 }
 
 }  // namespace

@@ -1,10 +1,15 @@
 // One Thirion demons iteration in one pass over device memory on Hopper
 // (sm_90a): warp -> gradient -> demons force -> Gaussian(sigma_fluid) ->
 // compose or add -> Gaussian(sigma_diffusion), with the reference Logger's
-// sums [sum |u_new - u|, sum |u|].
+// sums [sum |u_new - u|, sum |u|]. Two entry points:
+//   B10 of2d_demons_onepass: the whole image;
+//   K5 of2d_demons_onepass_strip: one strip of the strip-parallel driver
+//     (parallel/spatial.py), pre-padded with its neighbours' halo rows,
+//     composing under the strips' displacement contract, no Logger sums.
 //
 // Replaces: opticalflow2d_tpu/pallas_kernels/demons_onepass.py,
-//   thirion_onepass_pallas (:310, body _onepass_body :114-206).
+//   thirion_onepass_pallas (:310, body _onepass_body :114-206), dense (B10)
+//   and with prepadded=True (K5, strip body _strip_kernel :222).
 // Bound on this card: device-memory bandwidth. It must read iaux, iref and
 //   u and write u_new, 24 B per pixel: at 4096^2, 403 MB, or 0.120 ms at
 //   3.35 TB/s. The arithmetic (two k-tap separable Gaussians over two
@@ -23,6 +28,12 @@
 //   its fallback have no counterpart. Per-block Logger partials are added
 //   in block order by a second kernel (partials.cuh). A kernelwidth whose
 //   tile does not fit the card's shared memory is refused by the wrapper.
+// Strips (kStrip, rows.cuh): the same stages on the strip's rows; a cell
+//   reads the padded strip and every gather takes its taps there, inside
+//   the contract only (bilinear.cuh::strip_taps). An output row reaches
+//   2 (kw//2) + halo + 2 rows (the two smooths, the gradient, the warp's
+//   taps), the pad the entry point asks for; inside the contract a strip
+//   equals B10's rows bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -40,24 +51,25 @@ __host__ __device__ constexpr int onepass_smem_floats(int k) {
          2 * (kTile + 4 * (k / 2)) * (kTile + 4 * (k / 2)) + 2 * kThreadsX;
 }
 
-template <bool kAddition, bool kSums>
+template <bool kAddition, bool kSums, bool kStrip>
 __global__ void __launch_bounds__(kThreads)
 demons_onepass_kernel(const float* __restrict__ iaux, const float* __restrict__ iref,
                       const float* __restrict__ u, float* __restrict__ out,
-                      float* __restrict__ partials, int nx, int ny, int k, Taps taps_f,
-                      Taps taps_d, float a, float b) {
+                      float* __restrict__ partials, Rows rows, int ny, int halo, int k,
+                      Taps taps_f, Taps taps_d, float a, float b) {
   extern __shared__ float smem[];
   const int c = k / 2;
   const int r = 2 * c + 1;          // halo of the warp region
   const int e = kTile + 2 * r;      // iwar, iref: origin (i0 - r, j0 - r)
   const int m = kTile + 4 * c;      // corr: origin (i0 - 2c, j0 - 2c)
   const int d = kTile + 2 * c;      // smoothed c, composed: origin (i0 - c, j0 - c)
+  const int nx = rows.nx;
   float* sa = smem;
   float* sb = sa + 2 * e * e;
   float* red = sb + 2 * m * m;
-  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
+  const int i0 = rows.row0 + blockIdx.y * kTile, j0 = blockIdx.x * kTile;
 
-  stage_warp(iaux, iref, u, nx, ny, i0 - r, j0 - r, e, sa, sa + e * e);
+  stage_warp<kStrip>(iaux, iref, u, rows, ny, halo, i0 - r, j0 - r, e, sa, sa + e * e);
   __syncthreads();
   stage_force(sa, sa + e * e, e, i0 - r, j0 - r, nx, ny, a, b, sb);
   __syncthreads();
@@ -65,12 +77,12 @@ demons_onepass_kernel(const float* __restrict__ iaux, const float* __restrict__ 
   __syncthreads();
   smooth_y(sa, d, m, i0 - c, j0 - c, nx, ny, taps_f, k, sb);     // d x d
   __syncthreads();
-  stage_accumulate<kAddition>(sb, d, i0 - c, j0 - c, u, nx, ny, sa);
+  stage_accumulate<kAddition, kStrip>(sb, d, i0 - c, j0 - c, u, rows, ny, halo, sa);
   __syncthreads();
   smooth_x(sa, d, d, i0, nx, taps_d, k, sb);                     // kTile x d
   __syncthreads();
   float dsum = 0.f, psum = 0.f;
-  smooth_y_store<kSums>(sb, d, i0, j0, nx, ny, taps_d, k, out, u, dsum, psum);
+  smooth_y_store<kSums>(sb, d, i0, j0, rows, ny, taps_d, k, out, u, dsum, psum);
   if (kSums) {
     const size_t bid = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
     block_sum_pair<kThreadsX>(dsum, psum, threadIdx.y * kThreadsY + threadIdx.x, red,
@@ -78,17 +90,17 @@ demons_onepass_kernel(const float* __restrict__ iaux, const float* __restrict__ 
   }
 }
 
-template <bool kAddition, bool kSums>
+template <bool kAddition, bool kSums, bool kStrip>
 int launch(const float* iaux, const float* iref, const float* u, float* out,
-           float* partials, int nx, int ny, int k, const Taps& tf, const Taps& td, float a,
-           float b, cudaStream_t stream) {
+           float* partials, const Rows& rows, int ny, int halo, int k, const Taps& tf,
+           const Taps& td, float a, float b, cudaStream_t stream) {
   const int smem = static_cast<int>(onepass_smem_floats(k) * sizeof(float));
-  auto* kernel = demons_onepass_kernel<kAddition, kSums>;
+  auto* kernel = demons_onepass_kernel<kAddition, kSums, kStrip>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<tile_grid(nx, ny), dim3(kThreadsY, kThreadsX), smem, stream>>>(
-      iaux, iref, u, out, partials, nx, ny, k, tf, td, a, b);
+  kernel<<<tile_grid(rows, ny), dim3(kThreadsY, kThreadsX), smem, stream>>>(
+      iaux, iref, u, out, partials, rows, ny, halo, k, tf, td, a, b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -99,7 +111,7 @@ extern "C" int of2d_demons_onepass_smem_bytes(int k) {
 }
 
 extern "C" int of2d_demons_nblocks(int nx, int ny) {
-  const dim3 grid = tile_grid(nx, ny);
+  const dim3 grid = tile_grid(whole_image(nx), ny);
   return static_cast<int>(grid.x * grid.y);
 }
 
@@ -114,18 +126,37 @@ extern "C" int of2d_demons_onepass(const float* iaux, const float* iref, const f
   Taps tf, td;
   if (!make_taps(taps_f, k, &tf) || !make_taps(taps_d, k, &td))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Rows rows = whole_image(nx);
   int rc;
   if (partials == nullptr) {
-    rc = addition ? launch<true, false>(iaux, iref, u, out, nullptr, nx, ny, k, tf, td, a, b,
-                                        stream)
-                  : launch<false, false>(iaux, iref, u, out, nullptr, nx, ny, k, tf, td, a,
-                                         b, stream);
+    rc = addition ? launch<true, false, false>(iaux, iref, u, out, nullptr, rows, ny, 0, k, tf,
+                                               td, a, b, stream)
+                  : launch<false, false, false>(iaux, iref, u, out, nullptr, rows, ny, 0, k,
+                                                tf, td, a, b, stream);
     return rc;
   }
-  rc = addition
-           ? launch<true, true>(iaux, iref, u, out, partials, nx, ny, k, tf, td, a, b, stream)
-           : launch<false, true>(iaux, iref, u, out, partials, nx, ny, k, tf, td, a, b,
-                                 stream);
+  rc = addition ? launch<true, true, false>(iaux, iref, u, out, partials, rows, ny, 0, k, tf,
+                                            td, a, b, stream)
+                : launch<false, true, false>(iaux, iref, u, out, partials, rows, ny, 0, k, tf,
+                                             td, a, b, stream);
   if (rc != 0) return rc;
   return launch_sum_partials(partials, sums, of2d_demons_nblocks(nx, ny), 2, stream);
+}
+
+// K5, one strip: iaux_pad, iref_pad [nxl + 2 pad, ny] and u_pad [2, nxl + 2
+// pad, ny] of the strip whose first row is global row row0 of nx_glob ->
+// out [2, nxl, ny], one Thirion iteration by composition, no Logger sums.
+// Needs pad >= 2 (k / 2) + halo + 2, the reach of an output row.
+extern "C" int of2d_demons_onepass_strip(const float* iaux_pad, const float* iref_pad,
+                                         const float* u_pad, float* out, int nxl, int ny,
+                                         int pad, int row0, int nx_glob, int halo, int k,
+                                         const float* taps_f, const float* taps_d, float a,
+                                         float b, cudaStream_t stream) {
+  Taps tf, td;
+  const Rows rows{nxl, pad, row0, nx_glob};
+  if (!make_taps(taps_f, k, &tf) || !make_taps(taps_d, k, &td) || halo < 0 ||
+      !strip_ok(rows, 2 * (k / 2) + halo + 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false, false, true>(iaux_pad, iref_pad, u_pad, out, nullptr, rows, ny, halo, k,
+                                    tf, td, a, b, stream);
 }

@@ -15,6 +15,16 @@
 // the same order (solvers/base.py::demons_force, ops/conv.py::
 // convolve2d_clip, kernels/warp_fused.py), and the library is built with
 // -fmad=false, so the fields round like the plain versions on the card.
+//
+// Rows (rows.cuh): the stages work in global coordinates and touch device
+// memory only through r. The dense kernels pass whole_image(nx). The strip
+// kernels (kStrip) pass a strip of the strip-parallel driver, its inputs
+// pre-padded with r.pad halo rows a side: a cell is read from padded row
+// gi - row0 + pad, output row gi - row0 is written, and a gather takes its
+// taps from the padded strip under the strips' displacement contract
+// (bilinear.cuh::strip_taps), else its value is 0. A cell whose row the
+// padded strip does not hold is 0 like one outside the image; it feeds only
+// rows past the strip's own, which are not written.
 
 #pragma once
 
@@ -24,6 +34,7 @@
 
 #include "bilinear.cuh"
 #include "partials.cuh"
+#include "rows.cuh"
 
 namespace {
 
@@ -62,24 +73,29 @@ __device__ __forceinline__ float tap_sum(const float* src, int stride, int g, in
 
 // Stage 1: the warped moving image and the reference on the e x e region
 // at global (gi0, gj0): iwar = iaux(x + u(x)), the original pixel where
-// the sample is out of bounds or of zero weight (warp2d_ref).
+// the sample is out of bounds or of zero weight (warp2d_ref; on a strip
+// warp2d_strip_ref).
+template <bool kStrip>
 __device__ void stage_warp(const float* __restrict__ iaux, const float* __restrict__ iref,
-                           const float* __restrict__ u, int nx, int ny, int gi0, int gj0,
-                           int e, float* iwar_s, float* iref_s) {
-  const size_t n = static_cast<size_t>(nx) * ny;
+                           const float* __restrict__ u, const Rows& r, int ny, int halo,
+                           int gi0, int gj0, int e, float* iwar_s, float* iref_s) {
+  const size_t n = r.in_plane(ny);
   for (int li = threadIdx.y; li < e; li += kThreadsX) {
     const int gi = gi0 + li;
+    const bool row_in = r.loadable(gi - r.row0);
     for (int lj = threadIdx.x; lj < e; lj += kThreadsY) {
       const int gj = gj0 + lj;
-      float w = 0.f, r = 0.f;
-      if (inside(gi, nx) && inside(gj, ny)) {
-        const size_t p = static_cast<size_t>(gi) * ny + gj;
-        const Bilinear b = bilinear_at(gi, gj, u[p], u[n + p], nx, ny);
-        w = (b.in_bounds && b.weight != 0.f) ? bilinear_value(iaux, b) / b.weight : iaux[p];
-        r = iref[p];
+      float w = 0.f, ref = 0.f;
+      if (row_in && inside(gj, ny)) {
+        const size_t p = r.in_row(gi - r.row0, ny) + gj;
+        Bilinear b = bilinear_at(gi, gj, u[p], u[n + p], r.nx, ny);
+        const bool taps = kStrip ? strip_taps(b, gi, gj, r, ny, halo) : true;
+        const float value = taps ? bilinear_value(iaux, b) : 0.f;
+        w = (b.in_bounds && b.weight != 0.f) ? value / b.weight : iaux[p];
+        ref = iref[p];
       }
       iwar_s[li * e + lj] = w;
-      iref_s[li * e + lj] = r;
+      iref_s[li * e + lj] = ref;
     }
   }
 }
@@ -161,28 +177,32 @@ __device__ void smooth_y(const float* in, int rows, int cols_in, int gi0, int gj
 }
 
 // Stage 5: accumulate the smoothed correspondence ``cs`` (d x d at global
-// (gi0, gj0)) into the global motion u: u + c (kAddition), or the
-// composition c + u(x + c) in bounds and u out of bounds (compose_ref).
-template <bool kAddition>
+// (gi0, gj0)) into the motion u: u + c (kAddition), or the composition
+// c + u(x + c) in bounds and u out of bounds (compose_ref; on a strip
+// compose_strip_ref).
+template <bool kAddition, bool kStrip>
 __device__ void stage_accumulate(const float* cs, int d, int gi0, int gj0,
-                                 const float* __restrict__ u, int nx, int ny, float* comp) {
-  const size_t n = static_cast<size_t>(nx) * ny;
+                                 const float* __restrict__ u, const Rows& r, int ny, int halo,
+                                 float* comp) {
+  const size_t n = r.in_plane(ny);
   for (int li = threadIdx.y; li < d; li += kThreadsX) {
     const int gi = gi0 + li;
+    const bool row_in = r.loadable(gi - r.row0);
     for (int lj = threadIdx.x; lj < d; lj += kThreadsY) {
       const int gj = gj0 + lj;
       const int l = li * d + lj;
       float o0 = 0.f, o1 = 0.f;
-      if (inside(gi, nx) && inside(gj, ny)) {
-        const size_t p = static_cast<size_t>(gi) * ny + gj;
+      if (row_in && inside(gj, ny)) {
+        const size_t p = r.in_row(gi - r.row0, ny) + gj;
         const float c0 = cs[l], c1 = cs[d * d + l];
         if (kAddition) {
           o0 = u[p] + c0;
           o1 = u[n + p] + c1;
         } else {
-          const Bilinear b = bilinear_at(gi, gj, c0, c1, nx, ny);
-          o0 = b.in_bounds ? c0 + bilinear_sample(u, b) : u[p];
-          o1 = b.in_bounds ? c1 + bilinear_sample(u + n, b) : u[n + p];
+          Bilinear b = bilinear_at(gi, gj, c0, c1, r.nx, ny);
+          const bool taps = kStrip ? strip_taps(b, gi, gj, r, ny, halo) : true;
+          o0 = b.in_bounds ? c0 + (taps ? bilinear_sample(u, b) : 0.f) : u[p];
+          o1 = b.in_bounds ? c1 + (taps ? bilinear_sample(u + n, b) : 0.f) : u[n + p];
         }
       }
       comp[l] = o0;
@@ -191,19 +211,20 @@ __device__ void stage_accumulate(const float* cs, int d, int gi0, int gj0,
   }
 }
 
-// The last y pass, into the global [2, nx, ny] output of the block's tile:
+// The last y pass, into the [2, r.nxl, ny] output of the block's tile:
 // ``xs`` is kTile x cols with global cell (i0, j0 - c) at (0, 0). With
 // kSums, also the Logger magnitudes |out - u| and |u| of the tile's cells,
 // added in this thread's loop order.
 template <bool kSums>
-__device__ void smooth_y_store(const float* xs, int cols, int i0, int j0, int nx, int ny,
-                               const Taps& taps, int k, float* __restrict__ out,
+__device__ void smooth_y_store(const float* xs, int cols, int i0, int j0, const Rows& r,
+                               int ny, const Taps& taps, int k, float* __restrict__ out,
                                const float* __restrict__ u, float& dsum, float& psum) {
-  const size_t n = static_cast<size_t>(nx) * ny;
+  const size_t n = r.out_plane(ny), n_in = r.in_plane(ny);
   for (int li = threadIdx.y; li < kTile; li += kThreadsX) {
     const int gi = i0 + li;
-    if (gi >= nx) break;
-    const float den_x = tap_weight(gi, nx, taps, k);
+    const int lr = gi - r.row0;
+    if (lr >= r.nxl) break;
+    const float den_x = tap_weight(gi, r.nx, taps, k);
     for (int lj = threadIdx.x; lj < kTile; lj += kThreadsY) {
       const int gj = j0 + lj;
       if (gj >= ny) break;
@@ -211,11 +232,12 @@ __device__ void smooth_y_store(const float* xs, int cols, int i0, int j0, int nx
       const float* src = xs + li * cols + lj;
       const float o0 = tap_sum(src, 1, gj, ny, taps, k) / den;
       const float o1 = tap_sum(src + kTile * cols, 1, gj, ny, taps, k) / den;
-      const size_t p = static_cast<size_t>(gi) * ny + gj;
+      const size_t p = static_cast<size_t>(lr) * ny + gj;
       out[p] = o0;
       out[n + p] = o1;
       if (kSums) {
-        const float u0 = u[p], u1 = u[n + p];
+        const size_t q = r.in_row(lr, ny) + gj;
+        const float u0 = u[q], u1 = u[n_in + q];
         dsum += magnitude(o0 - u0, o1 - u1);
         psum += magnitude(u0, u1);
       }
@@ -223,8 +245,9 @@ __device__ void smooth_y_store(const float* xs, int cols, int i0, int j0, int nx
   }
 }
 
-inline dim3 tile_grid(int nx, int ny) {
-  return dim3((ny + kTile - 1) / kTile, (nx + kTile - 1) / kTile);
+// One thread block per kTile x kTile tile of the rows r owns.
+inline dim3 tile_grid(const Rows& r, int ny) {
+  return dim3((ny + kTile - 1) / kTile, (r.nxl + kTile - 1) / kTile);
 }
 
 // Copy host taps into the by-value struct; false if k is not odd in

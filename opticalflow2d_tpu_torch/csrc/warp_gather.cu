@@ -24,7 +24,8 @@
 //   does. Its taps are read from the pre-padded strip, at padded rows
 //   dx - row0 + pad and one below, and only inside the contract of
 //   parallel/spatial.py::_bilinear_local (:262-315): both floor offsets
-//   rx = dx - gi and ry = dy - gj in [-halo, halo]. Outside it the sample's
+//   rx = dx - gi and ry = dy - gj in [-halo, halo] (bilinear.cuh::
+//   strip_taps, shared with the demons strip kernels). Outside it the sample's
 //   value is 0: a warp gives 0 there and a compose adds 0, as the jnp strip
 //   route of the TPU package does (the Pallas hat gather also picks up
 //   rx = halo + 1; the two agree inside the contract). pad >= halo + 1
@@ -45,23 +46,6 @@ namespace {
 
 constexpr int kThreadsY = 32;  // along y, the contiguous axis
 constexpr int kThreadsX = 8;
-
-// Move the taps of b, the sample of global pixel (gi, j), into the padded
-// strip of rows r; false where a floor offset lies outside [-halo, halo].
-__device__ __forceinline__ bool strip_taps(Bilinear& b, int gi, int j, const Rows& r, int ny,
-                                           int halo) {
-  const int rx = b.dx - gi, ry = b.dy - j;
-  if (rx < -halo || rx > halo || ry < -halo || ry > halo) return false;
-  const size_t x0 = static_cast<size_t>(b.dx - r.row0 + r.pad) * ny;
-  const size_t x1 = x0 + ny;
-  const int y0 = min(max(b.dy, 0), ny - 1);
-  const int y1 = b.dy >= ny - 1 ? ny - 1 : max(b.dy + 1, 0);
-  b.p00 = x0 + y0;
-  b.p10 = x1 + y0;
-  b.p01 = x0 + y1;
-  b.p11 = x1 + y1;
-  return true;
-}
 
 // kCompose = false: data is the image [rows, ny]; out-of-bounds samples and
 //   samples of zero weight keep the image value.

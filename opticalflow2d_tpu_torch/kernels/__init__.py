@@ -11,7 +11,8 @@ LAUNCHES = {"diffusion_block": 0, "diffusion_step": 0, "warp2d": 0, "compose": 0
             "compose_smooth": 0, "elastic_block": 0, "fluid_iter": 0, "fluid_metrics": 0,
             "fluid_sweep_max": 0, "fluid_euler": 0, "diffusion_block_strip": 0,
             "elastic_block_strip": 0, "fluid_iter_strip": 0, "warp2d_strip": 0,
-            "compose_strip": 0}
+            "compose_strip": 0, "demons_onepass_strip": 0, "demons_correspondence_strip": 0,
+            "compose_smooth_strip": 0}
 
 
 def reset_launches() -> None:

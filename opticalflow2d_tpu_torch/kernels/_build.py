@@ -57,6 +57,11 @@ _SIGNATURES = {
     "of2d_demons_correspondence": ((_P, _P, _P, _P, _I, _I, _I, _FA, _F, _F, _P), _I),
     "of2d_compose_smooth_smem_bytes": ((_I,), _I),
     "of2d_compose_smooth": ((_P, _P, _P, _I, _I, _I, _FA, _P), _I),
+    "of2d_demons_onepass_strip": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _FA, _FA, _F,
+                                   _F, _P), _I),
+    "of2d_demons_correspondence_strip": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _FA, _F,
+                                          _F, _P), _I),
+    "of2d_compose_smooth_strip": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _FA, _P), _I),
     "of2d_fluid_metrics": ((_P, _P, _P, _P, _I, _I, _P), _I),
     "of2d_sor_nblocks": ((_I, _I), _I),
     "of2d_elastic_block_smem_bytes": ((_I,), _I),

@@ -15,6 +15,12 @@ every side in shared memory; ``tile_fits`` says whether a kernelwidth
 fits, and ``solvers.demons`` routes wider ones to the op chain before any
 launch. The gathers are exact for any displacement: no halo bound, no
 fallback.
+
+``thirion_onepass_strip`` (K5) is the same iteration, by composition and
+without the Logger sums, on one strip of the strip-parallel driver
+(``parallel.spatial``): the inputs carry ``pad >= onepass_strip_pad(halo,
+kernelwidth)`` halo rows a side, and the gathers take their taps there
+under the strips' displacement contract.
 """
 
 from __future__ import annotations
@@ -28,7 +34,11 @@ from opticalflow2d_tpu_torch.kernels.demons_fused import (
     TILE,
     WARPS,
     check_demons_inputs,
+    check_strip_inputs,
+    compose_smooth_rows,
+    correspondence_rows,
     demons_correspondence_ref,
+    strip_pad_rows,
     taps_array,
 )
 from opticalflow2d_tpu_torch.kernels.logger_norms import logger_norms_ref
@@ -93,3 +103,57 @@ def thirion_onepass(iaux: torch.Tensor, iref: torch.Tensor, u: torch.Tensor,
         _build.f32(sigma_i * sigma_i), _build.f32(sigma_x * sigma_x), int(addition))
     kernels.LAUNCHES["demons_onepass"] += 1
     return (out, sums) if with_errors else out
+
+
+def onepass_strip_pad(halo: int, kernelwidth: int) -> int:
+    """Rows an output row of K5 reaches: two smooths, the gradient and the
+    warp's taps (``demons_onepass.cu``). The TPU kernel rounds this up to 8
+    (``required_pad``); the strips here carry the exact reach."""
+    return 2 * (kernelwidth // 2) + halo + 2
+
+
+def thirion_onepass_strip_ref(iaux_pad, iref_pad, u_pad, row0: int, nx_glob: int,
+                              sigma_i: float, sigma_x: float, sigma_fluid: float,
+                              sigma_diffusion: float, kernelwidth: int, halo: int,
+                              pad: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K5: the strip correspondence on the rows
+    the sigma_diffusion smooth reaches, then the strip compose and smooth."""
+    need = onepass_strip_pad(halo, kernelwidth)
+    pad = need if pad is None else pad
+    nxl = strip_pad_rows(u_pad, pad, need, "the strip Thirion iteration")
+    c = kernelwidth // 2
+    cs = correspondence_rows(iaux_pad, iref_pad, u_pad, pad, -c, nxl + c, row0, nx_glob,
+                             sigma_i, sigma_x, sigma_fluid, kernelwidth, halo)
+    return compose_smooth_rows(u_pad, cs, pad, 0, nxl, row0, nx_glob, sigma_diffusion,
+                               kernelwidth, halo)
+
+
+def thirion_onepass_strip(iaux_pad: torch.Tensor, iref_pad: torch.Tensor, u_pad: torch.Tensor,
+                          row0: int, nx_glob: int, sigma_i: float, sigma_x: float,
+                          sigma_fluid: float, sigma_diffusion: float, kernelwidth: int,
+                          halo: int, pad: int | None = None) -> torch.Tensor:
+    """One Thirion iteration by composition on one strip: ``iaux_pad,
+    iref_pad [nxl + 2 pad, ny]`` and ``u_pad [2, nxl + 2 pad, ny]`` carry
+    ``pad`` halo rows a side (zeros beyond the image), ``row0`` is the
+    global index of the strip's first row and ``nx_glob`` the image's rows;
+    ``pad`` defaults to the reach and may not be less. Returns the strip's
+    ``u_new [2, nxl, ny]``. The plain version on the CPU, K5 on CUDA."""
+    need = onepass_strip_pad(halo, kernelwidth)
+    pad = need if pad is None else pad
+    if _build.on_cpu(iaux_pad, iref_pad, u_pad):
+        return thirion_onepass_strip_ref(iaux_pad, iref_pad, u_pad, row0, nx_glob, sigma_i,
+                                         sigma_x, sigma_fluid, sigma_diffusion, kernelwidth,
+                                         halo, pad)
+    nxl = strip_pad_rows(u_pad, pad, need, "the strip Thirion iteration")
+    ny = check_strip_inputs(nxl, pad, row0, nx_glob, kernelwidth,
+                            onepass_smem_bytes(kernelwidth),
+                            images=(("iaux_pad", iaux_pad), ("iref_pad", iref_pad)),
+                            fields=(("u_pad", u_pad),))
+    out = torch.empty((2, nxl, ny), dtype=u_pad.dtype, device=u_pad.device)
+    _build.launch("of2d_demons_onepass_strip", u_pad.device, iaux_pad.data_ptr(),
+                  iref_pad.data_ptr(), u_pad.data_ptr(), out.data_ptr(), nxl, ny, pad, row0,
+                  nx_glob, halo, kernelwidth, taps_array(sigma_fluid, kernelwidth),
+                  taps_array(sigma_diffusion, kernelwidth), _build.f32(sigma_i * sigma_i),
+                  _build.f32(sigma_x * sigma_x))
+    kernels.LAUNCHES["demons_onepass_strip"] += 1
+    return out

@@ -72,6 +72,43 @@ def convolve2d_clip(f: torch.Tensor, sigma: float, width: int) -> torch.Tensor:
     return num / (denx[:, None] * deny[None, :])
 
 
+def _tap_weight_rows(gi: torch.Tensor, n: int, taps: list, dtype) -> torch.Tensor:
+    """The renormalization along x at global rows ``gi``: the taps whose
+    source row lies in ``[0, n)``, added in tap order as ``convolve2d_clip``
+    adds its convolved ones."""
+    c = (len(taps) - 1) // 2
+    out = None
+    for t, w in enumerate(taps):
+        tap = torch.tensor(w, dtype=dtype, device=gi.device)
+        term = torch.where((gi + t - c >= 0) & (gi + t - c < n), tap, 0.0)
+        out = term if out is None else out + term
+    return out
+
+
+def convolve2d_clip_rows(f: torch.Tensor, gi0: int, nx: int, sigma: float,
+                         width: int) -> torch.Tensor:
+    """``convolve2d_clip`` on the rows of a strip: ``f [..., m + 2c, ny]``
+    holds rows ``gi0 .. gi0 + m + 2c`` of an image of ``nx`` rows (``c =
+    width // 2``), and the result is its ``m`` middle rows. A row outside
+    the image counts as 0, whatever ``f`` holds there, and the
+    renormalization comes from the global rows, so the result equals
+    ``convolve2d_clip`` of the whole image on those rows bit for bit."""
+    taps = gaussian_taps(sigma, width)
+    c = (len(taps) - 1) // 2
+    m = f.shape[-2] - 2 * c
+    gi = torch.arange(gi0, gi0 + m + 2 * c, device=f.device)[:, None]
+    inside = (gi >= 0) & (gi < nx)
+    num_x = None
+    for t, w in enumerate(taps):
+        term = torch.where(inside[t:t + m], f.narrow(-2, t, m) * w, 0.0)
+        num_x = term if num_x is None else num_x + term
+    num = _sepconv_axis(num_x, taps, -1)
+    ny = f.shape[-1]
+    denx = _tap_weight_rows(gi[c:c + m, 0], nx, taps, f.dtype)
+    deny = _sepconv_axis(torch.ones(ny, dtype=f.dtype, device=f.device), taps, 0)
+    return num / (denx[:, None] * deny[None, :])
+
+
 def convolve2d_flatwrap(f: torch.Tensor, sigma: float, width: int) -> torch.Tensor:
     """Bug-compatible renormalized convolution: bounds are checked on the
     *flat* x-fastest index, so x-edge taps wrap into the adjacent row

@@ -34,13 +34,32 @@ def _sequential(terms):
     return total
 
 
-def _interleaved4(terms):
-    """Four partial sums, term k into sum ``k % 4``, added pairwise."""
-    acc = [_sequential(terms[r::4]) for r in range(min(4, len(terms)))]
+def _interleaved(terms, n_acc: int):
+    """``n_acc`` partial sums, term k into sum ``k % n_acc``, each a running
+    sum, then added pairwise. ``n_acc = 1`` is one running sum."""
+    acc = [_sequential(terms[r::n_acc]) for r in range(min(n_acc, len(terms)))]
     while len(acc) > 1:
         acc = [acc[i] + acc[i + 1] if i + 1 < len(acc) else acc[i]
                for i in range(0, len(acc), 2)]
     return acc[0]
+
+
+def box_product_accumulators(shape, ny_out: int) -> Tuple[int, int]:
+    """``(a, b)``: the partial sums in which XLA on the CPU adds the x
+    offsets (``a``) and then the y offsets (``b``) of the JAX package's two
+    box products past 4096, for an input of ``shape [..., nx_in, ny_in]``.
+    Found by probing nx_in in {4104, 8224, 12288, 16384} and ny_in in
+    {16, ..., 256} (and 512, 1024 at 4104), 2D and ``[2, nx, ny]``,
+    levels 2 and 3 of the tiled pair: every pixel follows
+    - ``b = clamp(64 // ny_out, 1, 4)``;
+    - a 2D image: ``a = clamp(64 // ny_in, 1, 4)``;
+    - a stack: ``a = 4`` up to nx_in = 8224 and 1 from 12288 on.
+    The shapes left unprobed are listed in ROADMAP queue C."""
+    nx_in, ny_in = shape[-2], shape[-1]
+    b = min(4, max(1, 64 // ny_out))
+    if len(shape) == 2:
+        return min(4, max(1, 64 // ny_in)), b
+    return (4 if nx_in <= 8224 else 1), b
 
 
 def box_mean(image: torch.Tensor, fx: int, fy: int) -> torch.Tensor:
@@ -71,11 +90,11 @@ def downsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tens
     resample.py:42-66``), found by probing XLA:
     - extents <= 4096, ``reshape(...).mean()``: ``box_mean`` on the
       cropped grid;
-    - extents > 4096, the two box products: the x offsets first, one
-      running sum of the terms scaled by ``1/fx``; then the y offsets,
-      scaled by ``1/fy``, into four partial sums (offset mod 4) added
-      pairwise. Exact for 2D images at 8224x64, levels 1-3; the shapes
-      where XLA's product orders differ are listed in ROADMAP queue C.
+    - extents > 4096, the two box products: the x offsets first, the
+      terms scaled by ``1/fx`` added into ``a`` partial sums (offset mod
+      ``a``), each a running sum, then pairwise; then the y offsets,
+      scaled by ``1/fy``, into ``b`` partial sums the same way, with
+      ``(a, b)`` from the shape (``box_product_accumulators``).
     Scaling by a power of two is exact, so the forms differ only in
     the order of the adds.
     """
@@ -89,9 +108,10 @@ def downsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tens
     if nx_in <= 4096 and ny_in <= 4096:
         return box_mean(cropped, fx, fy)
     sx, sy = 1.0 / fx, 1.0 / fy
+    n_a, n_b = box_product_accumulators(image.shape, ny_out)
     c = [[cropped[..., a::fx, b::fy] for b in range(fy)] for a in range(fx)]
-    cols = [_sequential([c[a][b] * sx for a in range(fx)]) for b in range(fy)]
-    return _interleaved4([col * sy for col in cols])
+    cols = [_interleaved([c[a][b] * sx for a in range(fx)], n_a) for b in range(fy)]
+    return _interleaved([col * sy for col in cols], n_b)
 
 
 def upsample_image(image: torch.Tensor, dimout: Tuple[int, int]) -> torch.Tensor:

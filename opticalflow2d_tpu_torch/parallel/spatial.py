@@ -1,6 +1,7 @@
 """Strip-parallel registration: the explicit strip drivers of
 ``opticalflow2d_tpu.parallel.spatial`` (its path 2) for the diffusion,
-elastic and fluid families, ported to PyTorch.
+elastic, fluid, Thirion and diffeomorphic demons families, ported to
+PyTorch.
 
 An image is cut into strips along x, one per device of the mesh's ``"x"``
 axis (``parallel.mesh``). A sharded field is the list of its strips in mesh
@@ -16,15 +17,35 @@ counterparts:
   atomics, so a Logger stop repeats from run to run.
 - ``lax.while_loop``: a host loop that reads what the stop needs once a
   block (diffusion and elastic: the ``[k, 2]`` Logger sums) or once an
-  iteration (the per-step route; fluid: the Logger error and the minimum
-  Jacobian determinant together).
+  iteration (the per-step route and the demons: the Logger error; fluid:
+  the error and the minimum Jacobian determinant together). The
+  diffeomorphic exp map reads its squaring count once more an iteration.
 
 The strip kernels (``kernels``) carry the blocked diffusion and elastic
-passes, the fluid iteration and every warp and compose; on CPU tensors their
-plain versions do. The per-step diffusion and elastic bodies, the
-gradients, norms, the fluid timestep and Euler update and the pyramid are
-plain PyTorch on every device, as they are jnp in the JAX package. The
-``use_pallas`` switch and the TPU's tile gates are gone.
+passes, the fluid iteration, the demons iteration and every warp and
+compose; on CPU tensors their plain versions do. The per-step diffusion and
+elastic bodies, the gradients, norms, the fluid timestep and Euler update
+and the pyramid are plain PyTorch on every device, as they are jnp in the
+JAX package. The ``use_pallas`` switch and the TPU's tile gates are gone.
+
+A demons iteration takes one of three routes, chosen from the
+configuration before any launch (``demons_strip_route``), as JAX's
+``_demons_iter_strip`` does (``spatial.py:441-489``):
+- ``"onepass"``, K5: Thirion whose correspondence bound ``sigma_x / (2
+  sigma_i)`` fits the halo (``onepass_supported`` without its pad limit);
+- ``"two_kernel"``, K6, the exp map's squarings on K4 (diffeomorphic
+  only), then K7: diffeomorphic demons, and Thirion whose bound exceeds the
+  halo;
+- ``"op_chain"``, plain strip ops on K4's warp and compose, where the
+  kernelwidth's tile does not fit the kernels' shared memory
+  (``demons_onepass.tile_fits``).
+Thirion always composes and diffeomorphic demons never takes K5, as in the
+JAX strips. The TPU's tiling gates (``required_pad <= 16``, ``nxl %
+required_pad == 0``, ``onepass_feasible``'s tiers, ``fused_supported``'s
+8-row pad) are gone, and each kernel's pad is its exact reach; JAX's own
+tests pin the three routes to one field, so the route changes the launches,
+not the result. The level-warped moving image and the reference are padded
+once a level, not once an iteration.
 
 Semantics kept from the JAX strip drivers, which differ from the dense
 driver (``engine.registration``):
@@ -45,6 +66,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from opticalflow2d_tpu_torch.kernels.demons_fused import (
+    compose_smooth_strip,
+    compose_smooth_strip_pad,
+    correspondence_strip_pad,
+    demons_correspondence_strip,
+)
+from opticalflow2d_tpu_torch.kernels.demons_onepass import (
+    onepass_strip_pad,
+    thirion_onepass_strip,
+    tile_fits,
+)
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block_strip,
     required_pad as diffusion_pad,
@@ -56,9 +88,13 @@ from opticalflow2d_tpu_torch.kernels.elastic_block import (
 )
 from opticalflow2d_tpu_torch.kernels.fluid_fused import FLUID_PAD, fluid_iter_strip
 from opticalflow2d_tpu_torch.kernels.warp_fused import compose_strip, warp2d_strip
+from opticalflow2d_tpu_torch.ops.conv import convolve2d_clip_rows
 from opticalflow2d_tpu_torch.ops.grid import partial_x_rows, partial_y
+from opticalflow2d_tpu_torch.ops.reduce import sqrt_rounded
 from opticalflow2d_tpu_torch.ops.resample import box_mean
+from opticalflow2d_tpu_torch.ops.warp import expmap_nsq
 from opticalflow2d_tpu_torch.parallel.mesh import Mesh
+from opticalflow2d_tpu_torch.solvers.base import Derivatives, demons_force
 from opticalflow2d_tpu_torch.solvers.elastic import _gs_candidate, sor_scalars
 from opticalflow2d_tpu_torch.solvers.fluid import _timestep
 
@@ -68,14 +104,11 @@ Strips = List[torch.Tensor]
 # (warp_fused.py:30), or halo + 1 where the halo is wider.
 _GATHER_PAD = 8
 
-_FAMILIES = ("diffusion", "elastic", "fluid")
+_FAMILIES = ("diffusion", "elastic", "fluid", "thirions", "diffeo")
+_DEMONS = ("thirions", "diffeo")
 
 
 def _check_family(family: str) -> None:
-    if family in ("thirions", "diffeo"):
-        raise NotImplementedError(
-            f"the {family} strip driver is not ported yet (ROADMAP queue B, slice 6: the "
-            f"demons strips)")
     if family == "curvature":
         raise NotImplementedError(
             "curvature is not ported yet (ROADMAP queue A, item 12)")
@@ -265,6 +298,100 @@ def _compose_local(u_tot: Strips, u_inc: Strips, halo: int) -> Strips:
             for s, (tp, v) in enumerate(zip(_halo_pad(u_tot, _gather_pad(halo)), u_inc))]
 
 
+# --- strip Gaussian, exp map and the demons iteration (K5-K7) --------------------
+
+def _gaussian_local(f: Strips, sigma: float, width: int) -> Strips:
+    """Boundary-renormalized separable Gaussian of each strip, equal to
+    ``ops.conv.convolve2d_clip`` of the image on its rows: a ``width // 2``
+    -row halo exchange for the x pass, the renormalization from global
+    rows."""
+    c = (width - 1) // 2
+    nxl, nx_glob = f[0].shape[-2], len(f) * f[0].shape[-2]
+    padded = _halo_pad(f, c) if c else f
+    return [convolve2d_clip_rows(fp, s * nxl - c, nx_glob, sigma, width)
+            for s, fp in enumerate(padded)]
+
+
+def _expmap_strip(c: Strips, halo: int) -> Strips:
+    """Scaling and squaring of a correspondence field on the strips
+    (``ops.warp.expmap``): the squaring count from the strips' max |c|^2,
+    rooted in float64 (``sqrt_rounded``) and read once, the squarings on
+    the strip compose (K4)."""
+    m2 = _pmax([(x[0] ** 2 + x[1] ** 2).max() for x in c])
+    nsq = expmap_nsq(float(sqrt_rounded(m2)))  # the iteration's second host read
+    if nsq == 0:
+        return c
+    v = [x * float(2.0 ** -nsq) for x in c]
+    for _ in range(nsq):
+        v = _compose_local(v, v, halo)
+    return v
+
+
+def demons_strip_route(family: str, p: dict, halo: int) -> str:
+    """The route of a demons strip iteration, from the configuration:
+    ``"onepass"`` (K5) for Thirion whose correspondence bound
+    ``sigma_x / (2 sigma_i)`` fits the halo, ``"two_kernel"`` (K6, the exp
+    map, K7) for the rest when the kernels' tile fits the kernelwidth, else
+    ``"op_chain"``."""
+    if not tile_fits(p["kernelwidth"]):
+        return "op_chain"
+    if (family == "thirions" and halo >= 1 and p["sigma_i"] > 0
+            and p["sigma_x"] / (2.0 * p["sigma_i"]) <= halo):
+        return "onepass"
+    return "two_kernel"
+
+
+def _demons_chain_strip(u_est: Strips, iref_l: Strips, iaux: Strips, p: dict, halo: int,
+                        diffeomorphic: bool) -> Strips:
+    """One demons iteration as plain strip ops on the strip warp and
+    compose (K4): warp, gradient, force, sigma_fluid smooth, (exp map,)
+    compose, sigma_diffusion smooth."""
+    kw = int(p["kernelwidth"])
+    iwar = _warp_local(iaux, u_est, halo)
+    c = [demons_force(Derivatives(g, w - r), p["sigma_i"], p["sigma_x"])
+         for g, w, r in zip(_gradient_local(iwar), iwar, iref_l)]
+    c = _gaussian_local(c, p["sigma_fluid"], kw)
+    if diffeomorphic:
+        c = _expmap_strip(c, halo)
+    return _gaussian_local(_compose_local(u_est, c, halo), p["sigma_diffusion"], kw)
+
+
+def _demons_stepper(family: str, iref_l: Strips, iaux: Strips, p: dict,
+                    halo: int) -> Callable[[Strips], Strips]:
+    """``u_est -> u_new``, one demons iteration on the strips by the route
+    of ``demons_strip_route``. ``iaux`` (the level-warped moving image) and
+    ``iref_l`` are padded here, once for every iteration it runs."""
+    nxl, nx_glob = iaux[0].shape[-2], len(iaux) * iaux[0].shape[-2]
+    si, sx, sf, sd, kw = (p["sigma_i"], p["sigma_x"], p["sigma_fluid"], p["sigma_diffusion"],
+                          int(p["kernelwidth"]))
+    route = demons_strip_route(family, p, halo)
+    if route == "op_chain":
+        return lambda v: _demons_chain_strip(v, iref_l, iaux, p, halo, family == "diffeo")
+    if route == "onepass":
+        pad = onepass_strip_pad(halo, kw)
+        ia, ir = _halo_pad(iaux, pad), _halo_pad(iref_l, pad)
+
+        def onepass(v):
+            return [thirion_onepass_strip(ia[s], ir[s], vp, s * nxl, nx_glob, si, sx, sf, sd, kw,
+                                          halo, pad)
+                    for s, vp in enumerate(_halo_pad(v, pad))]
+
+        return onepass
+    pc, ps = correspondence_strip_pad(halo, kw), compose_smooth_strip_pad(halo, kw)
+    ia, ir = _halo_pad(iaux, pc), _halo_pad(iref_l, pc)
+
+    def two_kernel(v):
+        c = [demons_correspondence_strip(ia[s], ir[s], vp, s * nxl, nx_glob, si, sx, sf, kw, halo,
+                                         pc)
+             for s, vp in enumerate(_halo_pad(v, pc))]
+        if family == "diffeo":
+            c = _expmap_strip(c, halo)
+        return [compose_smooth_strip(vp, cp, s * nxl, nx_glob, sd, kw, halo, ps)
+                for s, (vp, cp) in enumerate(zip(_halo_pad(v, ps), _halo_pad(c, ps)))]
+
+    return two_kernel
+
+
 # --- family bodies -------------------------------------------------------------
 
 def _diffusion_consts_strip(grad_i: Strips, it_img: Strips, alpha: float) -> Strips:
@@ -425,11 +552,16 @@ def _level_local(family: str, u: Strips, iref_l: Strips, imov_l: Strips, level_n
     """One level solve on the strips: the family's iterations, the Logger
     stop and the final composition. Returns ``(u, iterations, regrids)``.
     Diffusion and elastic take the blocked strip kernels when
-    ``block_k > 1`` and the images are float32, else the per-step body."""
+    ``block_k > 1`` and the images are float32, else the per-step body;
+    the demons take the route of ``demons_strip_route``."""
     _check_family(family)
     if family == "fluid":
         return _fluid_level_strip(u, iref_l, imov_l, level_niter, halo, p, convergence_tol)
     iaux = _warp_local(imov_l, u, halo)
+    if family in _DEMONS:
+        one_step = _demons_stepper(family, iref_l, iaux, p, halo)
+        u, it = _iterate_level_strip(one_step, u, level_niter, halo, convergence_tol)
+        return u, it, 0
     grad_i = _gradient_local(iaux)
     it_img = [a - r for a, r in zip(iaux, iref_l)]
     bk = int(p.get("block_k", 0))
@@ -561,6 +693,50 @@ def make_variational_level_sharded(mesh: Mesh, method: str, niter: int, halo: in
     return solve
 
 
+def _demons_params(sigma_i: float, sigma_x: float, sigma_diffusion: float, sigma_fluid: float,
+                   kernelwidth: int) -> dict:
+    return dict(sigma_i=sigma_i, sigma_x=sigma_x, sigma_diffusion=sigma_diffusion,
+                sigma_fluid=sigma_fluid, kernelwidth=int(kernelwidth))
+
+
+def make_demons_step_sharded(mesh: Mesh, sigma_i: float, sigma_x: float, sigma_diffusion: float,
+                             sigma_fluid: float, kernelwidth: int, halo: int = 2,
+                             diffeomorphic: bool = False):
+    """One Thirion (composition) or diffeomorphic demons iteration on the
+    strips, by the route of ``demons_strip_route``. Returns ``(u [2, nx,
+    ny], iref, imov) -> u``; every warp and compose within the displacement
+    contract."""
+    devices = _strip_devices(mesh)
+    p = _demons_params(sigma_i, sigma_x, sigma_diffusion, sigma_fluid, kernelwidth)
+    family = "diffeo" if diffeomorphic else "thirions"
+
+    def step(u, iref, imov):
+        u, iref, imov = (_split(x, devices) for x in (u, iref, imov))
+        return _gather(_demons_stepper(family, iref, imov, p, halo)(u))
+
+    return step
+
+
+def make_demons_level_sharded(mesh: Mesh, sigma_i: float, sigma_x: float,
+                              sigma_diffusion: float, sigma_fluid: float, kernelwidth: int,
+                              niter: int, halo: int = 2, diffeomorphic: bool = False,
+                              convergence_tol: float = 0.001):
+    """A demons level solve on the strips: the level warp, iterations with
+    the Logger stop (one host read an iteration, two on the diffeomorphic
+    exp map) and the final composition. Returns ``(u [2, nx, ny], iref,
+    imov) -> (u, iterations)``."""
+    devices = _strip_devices(mesh)
+    p = _demons_params(sigma_i, sigma_x, sigma_diffusion, sigma_fluid, kernelwidth)
+    family = "diffeo" if diffeomorphic else "thirions"
+
+    def solve(u, iref, imov):
+        u, iref, imov = (_split(x, devices) for x in (u, iref, imov))
+        u, it, _ = _level_local(family, u, iref, imov, niter, halo, p, convergence_tol)
+        return _gather(u), it
+
+    return solve
+
+
 def make_fluid_level_sharded(mesh: Mesh, mu: float, lam: float, omega: float, niter: int,
                              halo: int = 2, dumax: float = 0.65, timestep_skip: float = 65.0,
                              regrid_threshold: float = 0.5, convergence_tol: float = 0.001,
@@ -582,15 +758,18 @@ def make_fluid_level_sharded(mesh: Mesh, mu: float, lam: float, omega: float, ni
 def make_register_sp(mesh: Mesh, family: str, niter, nscales: int = 1, nrefine: int = 1,
                      halo: int = 2, convergence_tol: float = 0.001, **params):
     """A whole multi-resolution registration on the strips, for
-    ``family`` in {"diffusion", "elastic", "fluid"}: the strip pyramid, the
-    level solves (``_level_local``) and the factor-2 resampling of the
-    motion between levels, coarse to fine; ``nrefine`` refinements a level,
-    each a fresh estimate from zero composed into the motion.
+    ``family`` in {"diffusion", "elastic", "fluid", "thirions", "diffeo"}:
+    the strip pyramid, the level solves (``_level_local``) and the factor-2
+    resampling of the motion between levels, coarse to fine; ``nrefine``
+    refinements a level, each a fresh estimate from zero composed into the
+    motion.
 
     ``params`` are the family's: ``alpha`` (diffusion); ``mu``, ``lam``,
     ``omega``, ``reference_stencil`` (elastic, fluid); ``dumax``,
     ``timestep_skip``, ``regrid_threshold`` (fluid); ``block_k``: diffusion
-    and elastic run ``block_k`` iterations a kernel pass when it is > 1.
+    and elastic run ``block_k`` iterations a kernel pass when it is > 1;
+    ``sigma_i``, ``sigma_x``, ``sigma_diffusion``, ``sigma_fluid``,
+    ``kernelwidth`` (thirions, diffeo: Thirion always composes).
     Needs nx divisible by ``2^nscales`` times the mesh's x size and ny by
     ``2^nscales``, and every warp within the displacement contract
     ``|floor offset| <= halo``. Returns ``(iref, imov) -> SPResult``."""
@@ -639,3 +818,14 @@ def make_register_sp(mesh: Mesh, family: str, niter, nscales: int = 1, nrefine: 
         return SPResult(_gather(u_full), tuple(iters), tuple(regrids))
 
     return solve
+
+
+def make_register_demons_sp(mesh: Mesh, sigma_i: float, sigma_x: float, sigma_diffusion: float,
+                            sigma_fluid: float, kernelwidth: int, niter, nscales: int = 1,
+                            halo: int = 2, convergence_tol: float = 0.001):
+    """The Thirion registration on the strips: ``make_register_sp`` for
+    ``"thirions"``."""
+    return make_register_sp(mesh, "thirions", niter, nscales=nscales, halo=halo,
+                            convergence_tol=convergence_tol,
+                            **_demons_params(sigma_i, sigma_x, sigma_diffusion, sigma_fluid,
+                                             kernelwidth))

@@ -437,10 +437,15 @@ def test_warp_and_compose_strip_match_plain(cuda, shape, halo, scale):
             assert torch.equal(torch.cat(got, dim=-2), dense_fn(dense_data, inc))
 
 
+DEMONS_SP = dict(sigma_x=1.0, sigma_diffusion=2.0, sigma_fluid=2.0, kernelwidth=5)
+
+
 @pytest.mark.parametrize("family,kw", [
     ("diffusion", dict(alpha=0.1, block_k=8)),
     ("elastic", dict(mu=0.5, lam=0.0, block_k=4)),
     ("fluid", dict(mu=0.25, lam=0.0)),
+    ("thirions", dict(sigma_i=1.0, **DEMONS_SP)),
+    ("diffeo", dict(sigma_i=0.5, **DEMONS_SP)),
 ])
 def test_register_sp_gpu_matches_cpu(cuda, family, kw):
     iref, imov, _, _ = _inputs(128, 128, cuda)
@@ -450,8 +455,61 @@ def test_register_sp_gpu_matches_cpu(cuda, family, kw):
     kernels.reset_launches()
     gpu = make_register_sp(make_mesh(x=4, devices=[cuda] * 4), family, **args)(iref, imov)
     strip = {"diffusion": "diffusion_block_strip", "elastic": "elastic_block_strip",
-             "fluid": "fluid_iter_strip"}[family]
+             "fluid": "fluid_iter_strip", "thirions": "demons_onepass_strip",
+             "diffeo": "compose_smooth_strip"}[family]
     assert kernels.LAUNCHES[strip] > 0 and kernels.LAUNCHES["compose_strip"] > 0
     assert kernels.LAUNCHES["warp2d_strip"] > 0
     assert gpu.iterations == cpu.iterations and gpu.regrids == cpu.regrids
     assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
+
+
+# --- the demons strip kernels K5-K7 ---------------------------------------------------
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+@pytest.mark.parametrize("kw,halo,scale", [(5, 2, 0.9), (11, 5, 2.4), (5, 2, 30.0)])
+def test_demons_strip_kernels_match_plain_and_dense(cuda, shape, kw, halo, scale):
+    """K5, K6 and K7 on 4 strips against their plain versions; with scale <
+    halo / 2 (inside the contract, the correspondence bound 0.5 <= halo),
+    the strips equal B10's, B11's and B12's rows bit for bit; at 30 px
+    mostly outside it, where a sample takes no taps."""
+    imov, iref, u = _demons_inputs(*shape, cuda, scale)
+    c_in = (torch.tanh(u.flip(1)) * min(scale, 0.45 * halo)).contiguous()
+    nx, nxl = shape[0], shape[0] // 4
+    inside = scale < halo / 2
+    onepass = (1.0, 1.0, 2.0, 1.5, kw)
+    corr, sd = (0.25, 1.0, 2.0, kw), 1.5
+    cases = (
+        (demons_onepass.thirion_onepass_strip, demons_onepass.thirion_onepass_strip_ref,
+         demons_onepass.onepass_strip_pad(halo, kw), (imov, iref, u), onepass,
+         lambda: demons_onepass.thirion_onepass(imov, iref, u, *onepass)),
+        (demons_fused.demons_correspondence_strip, demons_fused.demons_correspondence_strip_ref,
+         demons_fused.correspondence_strip_pad(halo, kw), (imov, iref, u), corr,
+         lambda: demons_fused.demons_correspondence(imov, iref, u, *corr)),
+        (demons_fused.compose_smooth_strip, demons_fused.compose_smooth_strip_ref,
+         demons_fused.compose_smooth_strip_pad(halo, kw), (u, c_in), (sd, kw),
+         lambda: demons_fused.compose_smooth(u, c_in, sd, kw)),
+    )
+    for fn, ref, pad, fields, params, dense in cases:
+        padded = _strip_inputs(cuda, shape, *fields, pad=pad)
+        got = [fn(*(p[s] for p in padded), s * nxl, nx, *params, halo) for s in range(4)]
+        for s in range(4):
+            want = ref(*(p[s] for p in padded), s * nxl, nx, *params, halo)
+            assert _max_abs(got[s], want) <= FIELD_TOL
+        if inside:
+            assert torch.equal(torch.cat(got, dim=1), dense())
+
+
+def test_demons_strip_kernels_refuse_a_pad_below_the_reach(cuda):
+    imov, iref, u = _demons_inputs(100, 77, cuda, 0.9)
+    kw, halo = 5, 2
+    for fn, need, fields, params in (
+            (demons_onepass.thirion_onepass_strip, demons_onepass.onepass_strip_pad(halo, kw),
+             (imov, iref, u), (1.0, 1.0, 2.0, 1.5, kw, halo)),
+            (demons_fused.demons_correspondence_strip,
+             demons_fused.correspondence_strip_pad(halo, kw), (imov, iref, u),
+             (0.25, 1.0, 2.0, kw, halo)),
+            (demons_fused.compose_smooth_strip, demons_fused.compose_smooth_strip_pad(halo, kw),
+             (u, u), (1.5, kw, halo))):
+        padded = _strip_inputs(cuda, (100, 77), *fields, pad=need - 1)
+        with pytest.raises(ValueError, match="pad of at least"):
+            fn(*(p[1] for p in padded), 25, 100, *params, need - 1)

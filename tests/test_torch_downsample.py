@@ -8,10 +8,8 @@ port's ``downsample_image`` follows those orders with a fixed sequence of
 tensor adds. The images are the tiled pattern, which has no subnormal
 values (XLA on the CPU flushes subnormals to zero, PyTorch keeps them).
 
-Tolerances: the downsampled levels bit for bit, or exactly the count of
-differing pixels that ROADMAP queue C records for a shape whose XLA order
-the port does not follow; the registration 1e-5 px with equal iteration and
-regrid counts, as ``test_torch_fluid.py``.
+Tolerances: the downsampled levels bit for bit; the registration 1e-5 px
+with equal iteration and regrid counts, as ``test_torch_fluid.py``.
 """
 
 import jax
@@ -30,18 +28,20 @@ from opticalflow2d_tpu_torch.ops.resample import downsample_image, pyramid_dims
 EXACT = dict(warp_halo=0, warp_halo_outer=0, warp_halo_auto=False)
 
 # (shape, level) -> pixels that differ from the JAX package, for each of
-# iref and imov, the 2D images and the [2, nx, ny] stack of both. 0 where
-# the port follows XLA's order; the others are ROADMAP queue C's list.
+# iref and imov, the 2D images and the [2, nx, ny] stack of both. Past
+# 4096 the cases pin each branch of ``box_product_accumulators``: x
+# accumulators a = 1, 2 and 4 and y accumulators b = 4, 2 and 1.
 CASES = {
     ((48, 40), 1): (0, 0), ((64, 48), 1): (0, 0), ((64, 48), 2): (0, 0),
     ((256, 256), 1): (0, 0), ((256, 256), 2): (0, 0),
     ((512, 512), 1): (0, 0), ((512, 512), 2): (0, 0),
     ((1024, 64), 1): (0, 0),
-    ((8224, 64), 1): (0, 0), ((8224, 64), 2): (0, 12162), ((8224, 64), 3): (0, 4326),
-    ((8224, 32), 1): (0, 0), ((8224, 32), 2): (7338, 5911), ((8224, 32), 3): (2224, 2110),
+    ((8224, 64), 1): (0, 0), ((8224, 64), 2): (0, 0), ((8224, 64), 3): (0, 0),
+    ((8224, 32), 1): (0, 0), ((8224, 32), 2): (0, 0), ((8224, 32), 3): (0, 0),
+    ((4104, 128), 2): (0, 0), ((4104, 256), 2): (0, 0), ((4104, 256), 3): (0, 0),
     # The extent of the 16384^2 fluid path, whose level 2 is a 4x4 patch
     # past 4096 (a 16384^2 grid is too large to compare on the CPU).
-    ((16384, 32), 1): (0, 0), ((16384, 32), 2): (14746, 0),
+    ((16384, 32), 1): (0, 0), ((16384, 32), 2): (0, 0),
     ((16384, 64), 1): (0, 0), ((16384, 64), 2): (0, 0),
 }
 

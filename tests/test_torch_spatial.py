@@ -12,7 +12,8 @@ over many regrids (1.8e-3 px over 40 regrids at 48x40,
 most two regrids a level, and stay within 4e-6 px.
 Where JAX takes its per-step body and the port its blocked kernel (coarse
 strips of 4 rows, below the TPU's 8-row tile), the two round a step apart
-by an ulp.
+by an ulp. The demons runs take parameters under which those ulps stay
+small (see ``DEMONS``), one on each route of the strip iteration.
 
 Tolerances: sweeps 1e-6 max-abs; registrations 1e-5 px with equal
 iteration counts at every (level, refinement), and equal regrid counts
@@ -29,9 +30,11 @@ import opticalflow2d_tpu_torch as T
 from _torch_helpers import assert_close, npy, tiled_pair, tt
 from opticalflow2d_tpu.parallel import spatial as j_sp
 from opticalflow2d_tpu.parallel.mesh import make_mesh as j_make_mesh
+from opticalflow2d_tpu_torch.ops.warp import expmap_nsq
 from opticalflow2d_tpu_torch.parallel import (
-    make_diffusion_sweeps_sharded, make_fluid_level_sharded, make_mesh, make_register_sp,
-    make_sor_sweeps_sharded, make_variational_level_sharded, make_warp2d_sharded)
+    make_demons_level_sharded, make_demons_step_sharded, make_diffusion_sweeps_sharded,
+    make_fluid_level_sharded, make_mesh, make_register_demons_sp, make_register_sp,
+    make_sor_sweeps_sharded, make_variational_level_sharded, make_warp2d_sharded, spatial)
 from opticalflow2d_tpu_torch.solvers.base import derivatives
 
 SHAPE = (64, 48)
@@ -96,6 +99,67 @@ def test_fluid_level_sharded_matches_jax(meshes, pair):
     assert_close(got[0], want[0], MOTION_TOL)
 
 
+# The demons strip routes (parallel.spatial.demons_strip_route) at halo 2:
+# Thirion's correspondence bound sigma_x / (2 sigma_i) is 0.5 (K5), 2.5
+# (past the halo: K6, K7); diffeomorphic demons at bound 1 squares once (K6,
+# the exp map, K7); kernelwidth 45 does not fit the kernels' tile (the op
+# chain). sigma_diffusion 2 keeps the registrations' motion under 3 px,
+# inside the contract at halo 4: with 1, the motion reaches 4-5 px, and at
+# a bound of 2 or more the force's small denominator amplifies the ulps of
+# compiled XLA's fused multiply-adds to 1e-4 px in ten iterations.
+DEMONS = {
+    "thirion_onepass": ("thirions", dict(sigma_i=1.0, sigma_x=1.0, sigma_diffusion=2.0,
+                                         sigma_fluid=2.0, kernelwidth=5)),
+    "thirion_two_kernel": ("thirions", dict(sigma_i=0.2, sigma_x=1.0, sigma_diffusion=2.0,
+                                            sigma_fluid=1.5, kernelwidth=5)),
+    "diffeo_two_kernel": ("diffeo", dict(sigma_i=0.5, sigma_x=1.0, sigma_diffusion=2.0,
+                                         sigma_fluid=2.0, kernelwidth=7)),
+    "diffeo_op_chain": ("diffeo", dict(sigma_i=0.5, sigma_x=1.0, sigma_diffusion=2.0,
+                                       sigma_fluid=2.0, kernelwidth=45)),
+}
+ROUTES = {"thirion_onepass": "onepass", "thirion_two_kernel": "two_kernel",
+          "diffeo_two_kernel": "two_kernel", "diffeo_op_chain": "op_chain"}
+
+
+def _squarings(monkeypatch):
+    """Record the squaring counts of the strip exp map."""
+    seen = []
+
+    def nsq(m):
+        seen.append(expmap_nsq(m))
+        return seen[-1]
+
+    monkeypatch.setattr(spatial, "expmap_nsq", nsq)
+    return seen
+
+
+@pytest.mark.parametrize("name", list(DEMONS))
+def test_demons_step_sharded_matches_jax(meshes, pair, name):
+    jmesh, mesh = meshes
+    family, p = DEMONS[name]
+    assert spatial.demons_strip_route(family, p, 2) == ROUTES[name]
+    u = (0.8 * np.tanh(np.random.default_rng(3).standard_normal((2,) + SHAPE))).astype(
+        np.float32)
+    kw = dict(halo=2, diffeomorphic=family == "diffeo")
+    want = j_sp.make_demons_step_sharded(jmesh, **p, **kw)(*_j(u, *pair))
+    got = make_demons_step_sharded(mesh, **p, **kw)(*map(tt, (u, *pair)))
+    assert_close(got, want, MOTION_TOL)
+
+
+@pytest.mark.parametrize("name", ["thirion_onepass", "diffeo_two_kernel"])
+def test_demons_level_sharded_matches_jax(meshes, pair, name, monkeypatch):
+    jmesh, mesh = meshes
+    family, p = DEMONS[name]
+    seen = _squarings(monkeypatch)
+    u0 = np.zeros((2,) + SHAPE, np.float32)
+    kw = dict(niter=20, halo=2, diffeomorphic=family == "diffeo")
+    want_u, want_it = j_sp.make_demons_level_sharded(jmesh, **p, **kw)(*_j(u0, *pair))
+    got_u, got_it = make_demons_level_sharded(mesh, **p, **kw)(*map(tt, (u0, *pair)))
+    assert got_it == int(want_it)
+    assert_close(got_u, want_u, MOTION_TOL)
+    assert any(seen) == (family == "diffeo")
+
+
 # name -> (family, make_register_sp keywords, JAX runs its strip kernels)
 SP_CASES = {
     "diffusion_block4": ("diffusion", dict(niter=[8, 6], halo=4, alpha=0.5, block_k=4), True),
@@ -109,6 +173,14 @@ SP_CASES = {
                            False),
     "diffusion_nscales2": ("diffusion", dict(niter=[5, 4, 6], nscales=2, halo=4, alpha=0.5),
                            False),
+    "thirion_onepass_nrefine2": ("thirions", dict(niter=[10, 8], nrefine=2, halo=4,
+                                                  **DEMONS["thirion_onepass"][1]), False),
+    "thirion_onepass_pallas": ("thirions", dict(niter=[12, 10], halo=4,
+                                                **DEMONS["thirion_onepass"][1]), True),
+    "diffeo_two_kernel": ("diffeo", dict(niter=[12, 10], halo=4,
+                                         **DEMONS["diffeo_two_kernel"][1]), False),
+    "diffeo_op_chain": ("diffeo", dict(niter=[8, 6], halo=4, **DEMONS["diffeo_op_chain"][1]),
+                        False),
 }
 
 
@@ -136,6 +208,10 @@ def test_register_sp_matches_jax(meshes, pair, name):
     ("elastic", dict(mu=0.5, lam=0.0, block_k=4), dict(method=T.Method.ELASTIC, mu=0.5,
                                                        lam=0.0)),
     ("fluid", dict(mu=0.25, lam=0.0), dict(method=T.Method.FLUID, mu=0.25, lam=0.0)),
+    ("thirions", DEMONS["thirion_onepass"][1],
+     dict(method=T.Method.THIRIONS_DEMONS, **DEMONS["thirion_onepass"][1])),
+    ("diffeo", DEMONS["diffeo_two_kernel"][1],
+     dict(method=T.Method.DIFFEOMORPHIC_DEMONS, **DEMONS["diffeo_two_kernel"][1])),
 ])
 def test_register_sp_matches_dense_register(meshes, pair, family, kw, cfg_kw):
     """Strips against the port's own dense driver, as the JAX package's SP
@@ -152,10 +228,25 @@ def test_register_sp_matches_dense_register(meshes, pair, family, kw, cfg_kw):
     assert_close(got.motion, want.motion, MOTION_TOL)
 
 
+def test_register_demons_sp_matches_jax(meshes, pair):
+    """The Thirion wrapper (the K5 route at nrefine 1), at the JAX package's
+    default kernelwidth."""
+    jmesh, mesh = meshes
+    p = dict(sigma_i=1.0, sigma_x=0.5, sigma_diffusion=1.0, sigma_fluid=1.0, kernelwidth=5,
+             niter=[10, 8], nscales=1, halo=2)
+    want_u, want_it = j_sp.make_register_demons_sp(jmesh, **p)(*_j(*pair))
+    got = make_register_demons_sp(mesh, **p)(*map(tt, pair))
+    assert list(got.iterations) == [int(v) for v in np.asarray(want_it)]
+    assert_close(got.motion, want_u, MOTION_TOL)
+
+
 def test_strip_drivers_refuse_what_is_not_ported(meshes, pair):
+    """Curvature and a data axis still raise; the demons families run."""
     _, mesh = meshes
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_register_sp(mesh, "thirions", niter=[4])
+    for family in ("thirions", "diffeo"):
+        got = make_register_sp(mesh, family, niter=[2], nscales=0, **DEMONS["thirion_onepass"][1])(
+            *map(tt, pair))
+        assert got.iterations == (2,)
     with pytest.raises(NotImplementedError, match="item 12"):
         make_variational_level_sharded(mesh, "curvature", niter=4)
     with pytest.raises(ValueError, match="devices="):

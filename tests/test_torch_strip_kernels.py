@@ -1,15 +1,17 @@
-"""The plain versions of the port's strip kernels (K1-K4) against the JAX
+"""The plain versions of the port's strip kernels (K1-K7) against the JAX
 package's strip kernels, run in interpret mode on the CPU, on the same numpy
-inputs; the strip halo exchange and pyramid against JAX's inside
-``shard_map`` on the conftest's eight virtual CPU devices.
+inputs; the strip halo exchange, pyramid, Gaussian and exp map against
+JAX's inside ``shard_map`` on the conftest's eight virtual CPU devices.
 
 Strips are carved from a 64x48 field padded with zeros beyond its edges,
 what the halo exchange provides (``tests/test_diffusion_block.py:112``),
-at rows 0, 16, 32 and 48 and at the odd row 17. Tolerances: fields 1e-6
-max-abs (the same operations in the same order), per-strip Logger sums
-1e-5 relative (added in another order), max |R|^2 1e-6 relative. The
-strips of an image, concatenated, equal the port's dense plain version bit
-for bit; the strip pyramid equals JAX's bit for bit.
+at rows 0, 16, 32 and 48 and at the odd row 17; each side gets its own
+pad (the demons strips: the port's exact reach, JAX's rounded to 8).
+Tolerances: fields 1e-6 max-abs (the same operations in the same order),
+per-strip Logger sums 1e-5 relative (added in another order), max |R|^2
+1e-6 relative. The strips of an image, concatenated, equal the port's
+dense plain version bit for bit; the strip pyramid equals JAX's bit for
+bit.
 """
 
 import jax
@@ -22,12 +24,20 @@ from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import PartitionSpec as P
 
 from _torch_helpers import assert_close, npy, tiled_pair, tt
+from opticalflow2d_tpu.pallas_kernels import demons_fused as j_df
+from opticalflow2d_tpu.pallas_kernels import demons_onepass as j_op
 from opticalflow2d_tpu.pallas_kernels import diffusion_block as j_diff
 from opticalflow2d_tpu.pallas_kernels import elastic_block as j_el
 from opticalflow2d_tpu.pallas_kernels import fluid_fused as j_fl
 from opticalflow2d_tpu.pallas_kernels import warp_fused as j_wf
 from opticalflow2d_tpu.parallel import spatial as j_sp
 from opticalflow2d_tpu.parallel.mesh import make_mesh as j_make_mesh
+from opticalflow2d_tpu_torch.kernels.demons_fused import (
+    compose_smooth_ref, compose_smooth_strip, compose_smooth_strip_pad, compose_smooth_strip_ref,
+    correspondence_strip_pad, demons_correspondence_ref, demons_correspondence_strip,
+    demons_correspondence_strip_ref)
+from opticalflow2d_tpu_torch.kernels.demons_onepass import (
+    onepass_strip_pad, thirion_onepass_ref, thirion_onepass_strip, thirion_onepass_strip_ref)
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block_ref, diffusion_block_strip, diffusion_block_strip_ref, stack_derivs)
 from opticalflow2d_tpu_torch.kernels.elastic_block import (
@@ -36,6 +46,8 @@ from opticalflow2d_tpu_torch.kernels.fluid_fused import (
     fluid_iter_ref, fluid_iter_strip, fluid_iter_strip_ref)
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
     compose_ref, compose_strip, compose_strip_ref, warp2d_ref, warp2d_strip, warp2d_strip_ref)
+from opticalflow2d_tpu_torch.ops.conv import convolve2d_clip
+from opticalflow2d_tpu_torch.ops.warp import expmap, expmap_nsq
 from opticalflow2d_tpu_torch.parallel import make_mesh, spatial
 from opticalflow2d_tpu_torch.solvers.base import derivatives
 
@@ -214,6 +226,125 @@ def test_warp_outside_the_contract_matches_jax(fields, offset):
     assert np.array_equal(got[outside], want[outside])
     assert (got[outside] == 0).mean() > 0.5
     assert_close(got, want, FIELD_TOL)
+
+
+DEMONS_STRIP_CASES = [(5, 2), (7, 3)]  # (kernelwidth, halo) that JAX's gates admit
+
+
+@pytest.mark.parametrize("kw,halo", DEMONS_STRIP_CASES)
+def test_thirion_onepass_strip_ref_matches_pallas(fields, kw, halo):
+    """K5's plain version against JAX's ``prepadded=True`` kernel, each on
+    its own pad (the exact reach here, JAX's rounded up to 8), by
+    composition; the motion inside the contract and the correspondence
+    bound sigma_x / (2 sigma_i) = 0.5 <= halo."""
+    iref, imov, _, u, _ = fields
+    u = u * 0.5
+    params = (1.0, 1.0, 2.0, 1.5, kw)
+    j_pad, pad = j_op.required_pad(halo, kw), onepass_strip_pad(halo, kw)
+    got = {}
+    for row0 in ROW0S:
+        with pltpu.force_tpu_interpret_mode():
+            want = j_op.thirion_onepass_pallas(
+                *(jnp.asarray(_strip(a, row0, j_pad)) for a in (imov, iref, u)), *params,
+                halo=halo, addition=False, row0=row0, nx_glob=SHAPE[0], prepadded=True)
+        args = [tt(_strip(a, row0, pad)) for a in (imov, iref, u)]
+        got[row0] = thirion_onepass_strip_ref(*args, row0, SHAPE[0], *params, halo)
+        assert_close(got[row0], want, FIELD_TOL)
+        assert torch.equal(thirion_onepass_strip(*args, row0, SHAPE[0], *params, halo),
+                           got[row0])
+    dense = thirion_onepass_ref(tt(imov), tt(iref), tt(u), *params)
+    assert torch.equal(_tiled(got), dense)
+    assert torch.equal(got[17], dense[:, 17:17 + NXL])
+
+
+@pytest.mark.parametrize("kw,halo", DEMONS_STRIP_CASES)
+def test_demons_fused_strip_refs_match_pallas(fields, kw, halo):
+    """K6 and K7's plain versions against JAX's ``prepadded=True`` kernels
+    (pad 8, ``_PAD``), at the diffeomorphic parameters; K7's correspondence
+    inside the contract."""
+    iref, imov, _, u, _ = fields
+    u_tot, c_inc = u * 0.5, u * (0.25 * halo)
+    corr_params, sd = (0.25, 1.0, 2.0, kw), 1.5
+    j_pad = j_df._PAD
+    corr, comp = {}, {}
+    for row0 in ROW0S:
+        with pltpu.force_tpu_interpret_mode():
+            want_c = j_df.demons_correspondence_pallas(
+                *(jnp.asarray(_strip(a, row0, j_pad)) for a in (imov, iref, u_tot)),
+                *corr_params, halo=halo, row0=row0, nx_glob=SHAPE[0], prepadded=True)
+            want_s = j_df.compose_smooth_pallas(
+                *(jnp.asarray(_strip(a, row0, j_pad)) for a in (u_tot, c_inc)), sd, kw,
+                halo=halo, row0=row0, nx_glob=SHAPE[0], prepadded=True)
+        pad = correspondence_strip_pad(halo, kw)
+        args = [tt(_strip(a, row0, pad)) for a in (imov, iref, u_tot)]
+        corr[row0] = demons_correspondence_strip_ref(*args, row0, SHAPE[0], *corr_params, halo)
+        assert_close(corr[row0], want_c, FIELD_TOL)
+        assert torch.equal(demons_correspondence_strip(*args, row0, SHAPE[0], *corr_params,
+                                                       halo), corr[row0])
+        pad = compose_smooth_strip_pad(halo, kw)
+        args = [tt(_strip(a, row0, pad)) for a in (u_tot, c_inc)]
+        comp[row0] = compose_smooth_strip_ref(*args, row0, SHAPE[0], sd, kw, halo)
+        assert_close(comp[row0], want_s, FIELD_TOL)
+        assert torch.equal(compose_smooth_strip(*args, row0, SHAPE[0], sd, kw, halo), comp[row0])
+    dense_c = demons_correspondence_ref(tt(imov), tt(iref), tt(u_tot), *corr_params)
+    dense_s = compose_smooth_ref(tt(u_tot), tt(c_inc), sd, kw)
+    for got, dense in ((corr, dense_c), (comp, dense_s)):
+        assert torch.equal(_tiled(got), dense)
+        assert torch.equal(got[17], dense[:, 17:17 + NXL])
+
+
+def test_demons_strip_wrappers_refuse_a_pad_below_the_reach(fields):
+    """A pad one row short of the reach raises, on the CPU as on the card."""
+    iref, imov, _, u, _ = fields
+    kw, halo = 5, 2
+    for fn, need, arrays, params in (
+            (thirion_onepass_strip, onepass_strip_pad(halo, kw), (imov, iref, u),
+             (1.0, 1.0, 2.0, 1.5, kw, halo)),
+            (demons_correspondence_strip, correspondence_strip_pad(halo, kw), (imov, iref, u),
+             (0.25, 1.0, 2.0, kw, halo)),
+            (compose_smooth_strip, compose_smooth_strip_pad(halo, kw), (u, u), (1.5, kw, halo))):
+        args = [tt(_strip(a, 16, need - 1)) for a in arrays]
+        with pytest.raises(ValueError, match="pad of at least"):
+            fn(*args, 16, SHAPE[0], *params, need - 1)
+
+
+@pytest.mark.parametrize("kw", [5, 9])
+def test_gaussian_local_matches_jax(kw):
+    """The strip Gaussian (a kw // 2-row halo exchange, the renormalization
+    from global rows) against JAX's ``make_gaussian_smooth_sharded``, which
+    compiled XLA contracts into fused multiply-adds an ulp apart, and bit
+    for bit against the port's dense ``convolve2d_clip``; kw 9 reaches past
+    a 4-row strip (the multi-hop exchange)."""
+    x = np.random.default_rng(kw).standard_normal((2,) + SHAPE).astype(np.float32)
+    jmesh = j_make_mesh(data=1, x=8)
+    want = np.asarray(j_sp.make_gaussian_smooth_sharded(jmesh, 1.5, kw)(jnp.asarray(x)))
+    dense = convolve2d_clip(tt(x), 1.5, kw)
+    for n in (8, 16):
+        got = spatial._gather(spatial._gaussian_local(spatial._split(x, ["cpu"] * n), 1.5, kw))
+        assert_close(got, want, FIELD_TOL)
+        assert torch.equal(got, dense)
+
+
+@pytest.mark.parametrize("maxabs,nsq", [(0.3, 0), (1.6, 2), (3.5, 3)])
+def test_expmap_strip_matches_jax(maxabs, nsq):
+    """The strip exp map, with maxabs set by one pixel away from a squaring
+    boundary (no squaring, two and three, within the contract at halo 5):
+    bit for bit against the port's dense ``expmap``, and against JAX's
+    inside ``shard_map``. Compiled XLA contracts the compose's tap sum into
+    fused multiply-adds an ulp apart, and each squaring composes the field
+    with itself, which about doubles a difference: the tolerance is
+    FIELD_TOL * 2^nsq (1.6e-6 measured at two squarings)."""
+    halo = 5
+    rng = np.random.default_rng(nsq)
+    c = (0.5 * maxabs * np.tanh(rng.standard_normal((2,) + SHAPE))).astype(np.float32)
+    c[:, 37, 5] = [maxabs, 0.0]
+    assert expmap_nsq(maxabs) == nsq
+    jmesh = j_make_mesh(data=1, x=8)
+    want = _j_strips(lambda f: j_sp._expmap_strip(f, halo, "x"), c, P(None, "x", None), jmesh)
+    got = spatial._gather(spatial._expmap_strip(spatial._split(c, ["cpu"] * 8), halo))
+    assert torch.equal(got, expmap(tt(c)))
+    assert_close(got, want, FIELD_TOL * 2 ** nsq)
+    assert np.array_equal(npy(got), c) == (nsq == 0)
 
 
 def test_strip_wrappers_refuse_other_devices():
