@@ -12,11 +12,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    <= 1e-5 relative, max |R|^2 and the minimum Jacobian determinant
    <= 1e-6 relative): the diffusion kernels, warp and compose with
    displacements up to +-40 px, the Logger norms, the three demons kernels
-   at kernelwidth 5 and 11 (the one-pass kernel by composition and by
-   addition) with small displacements and with ones that send samples out
-   of bounds, the elastic block at k = 1, 2, 4 with either stencil, the
-   fluid iteration with either stencil and either maxabs with a nonzero
-   velocity, and the fluid metrics on a field of up to 3 px whose
+   at kernelwidth 3, 5, 7, 11 and 43 (each plan of their tiles: 5 with its
+   taps known, 64 x 64 tiles at run time, 32 x 32 with two staging buffers
+   and with one; the one-pass kernel by composition and by addition) with
+   small displacements and with ones that send samples out of bounds, also
+   on 4x4 and 33x1000, whose tiles are all border tiles, the elastic block
+   at k = 1, 2, 4 with either stencil, the fluid iteration with either
+   stencil and either maxabs with a nonzero velocity, and the fluid metrics on a field of up to 3 px whose
    Jacobian determinant falls below 0.5. The two-pass fluid kernels with
    either stencil and either maxabs: the sweep-and-max pass, whose vel'
    and max |R|^2 must also equal the fluid iteration's bit for bit, and
@@ -31,7 +33,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    elastic strip at k = 1, 2, 4 with either stencil, the fluid strip with
    either stencil and either maxabs, warp and compose inside the
    displacement contract and (plain version only) far outside it; the
-   demons strips K5-K7 at halo 5 and kernelwidth 5 and 11, each on its
+   demons strips K5-K7 at halo 5 and kernelwidth 3, 5, 7, 11 and 43, each on its
    exact pad, with displacements of up to 2 px (also bit for bit against
    B10-B12's rows) and of up to +-40 px (plain version only).
 3. The main paths through the session API at 4096^2, each with the launch
@@ -73,10 +75,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the three-blob pair's widths scale with n, which leaves fluid's
    increment so small at 512^2 and above that every step is skipped.
    Three levels put the coarsest at 1024^2, where the blobs are 1.5 px.
-4. Profiles of runs 3c, 3e and the five 3g runs (sp_thirion and sp_diffeo
-   capped at DEMONS_PROFILE_NITER iterations a level), and of the dense
-   elastic and tiled diffusion runs: the device's busy share, the host
-   syncs and the device time of the concatenations (the halo pads).
+4. Profiles of runs 3b, 3c, 3e and the five 3g runs (sp_thirion and
+   sp_diffeo capped at DEMONS_PROFILE_NITER iterations a level), of the
+   dense elastic and tiled diffusion runs, and of the dense Thirion and
+   diffeomorphic runs on the tiled pair at the strip profiles' cap: the
+   device's busy share, the host syncs and the device time of the
+   concatenations (the halo pads).
 5. Slice parity at 512^2 for each path: the CPU (plain versions) against
    the GPU (kernels), motion <= 1e-5 px and equal iteration and regrid
    counts at every level; and the fluid run again with every level on the
@@ -88,7 +92,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    fluid iteration by each route (B7 and the plain Euler tail; B8, the
    gate and B9); and of each strip kernel on one 1024x4096 strip of the
    4096^2 grid (K1-K4 padded with 8 rows, K5-K7 with their exact reach at
-   halo 5), its bound counting the halo rows it reads.
+   halo 5), its bound counting the halo rows it reads. Then the demons
+   kernels' tiles and each demons kernel's bound under the instruction floor
+   (the float32 rate without fused multiply-adds, which -fmad=false forbids).
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -152,12 +158,18 @@ PARITY_NSCALES = 2
 NITER = 400  # at every level
 DEMONS_PARITY_NITER = 200  # at every level of the CPU-timed demons parity runs
 SP_PARITY_NITER = 200  # and of the strip paths' parity runs
-# The strip demons profiles' cap a level: sp_diffeo runs 400 iterations on
-# five of its six levels, and the profiler's tables of its 2014 iterations
-# took about 200 s on an H100; 100 keeps the steady loop in the window.
+# The cap a level of the demons profiles on the tiled pair, strip and dense:
+# sp_diffeo runs 400 iterations on five of its six levels, and the
+# profiler's tables of its 2014 iterations took about 200 s on an H100; 100
+# keeps the steady loop in the window.
 DEMONS_PROFILE_NITER = 100
 SEED = 0
 KERNEL_SHAPES = ((4096, 4096), (2048, 2048), (1000, 777))
+# The demons kernels' widths: kw 5 with its taps known, 3 and 7 on 64 x 64
+# tiles at run time, 11 on 32 x 32 with two staging buffers (B11: 64 x 64),
+# 43 with one (B11: two); and shapes whose tiles are all border tiles.
+DEMONS_KWS = (3, 5, 7, 11, 43)
+BORDER_SHAPES = ((4, 4), (33, 1000))
 # The fluid_16k path's levels past 4096: 16384^2 runs B3, B5, B8 and B9,
 # 8192^2 B3, B5 and B7. At 16384^2 g's third plane starts 2^31 bytes in.
 HUGE_KERNEL_SHAPES = (N_HUGE, N_HUGE // 2)
@@ -272,6 +284,10 @@ KERNELS = {
 # the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# The kernels' instruction floor: the float32 peak counts a fused
+# multiply-add as two operations, and -fmad=false fuses none, so the
+# kernels' operations go at most at half that rate.
+PEAK_F32_NO_FMA_PER_S = PEAK_F32_PER_S / 2
 KW = 5  # the demons kernelwidth of the main paths
 # Per output pixel at the main paths' settings: float32 planes each kernel
 # must read and write once, and the float operations it does on them
@@ -287,11 +303,18 @@ ELASTIC_K = 4
 # A strip kernel does its dense kernel's work on the strip's pixels and
 # also reads the halo rows of its padded inputs (STRIP_PADDED planes, 8 rows
 # a side at the timed settings, the demons strips their exact reach).
+# The demons kernels whose bound phase 6 also states under the instruction floor.
+DEMONS_TIMED = ("demons_onepass", "demons_correspondence", "compose_smooth",
+                "demons_onepass_strip", "demons_correspondence_strip", "compose_smooth_strip")
 STRIP_OF = {"diffusion_block_strip": "diffusion_block", "elastic_block_strip": "elastic_block",
             "fluid_iter_strip": "fluid_iter", "warp2d_strip": "warp2d",
             "compose_strip": "compose", "demons_onepass_strip": "demons_onepass",
             "demons_correspondence_strip": "demons_correspondence",
             "compose_smooth_strip": "compose_smooth"}
+# The demons strips' timed pads: at SP_HALO and kernelwidth KW, each its exact reach.
+STRIP_PADS = {"demons_onepass_strip": k_op.onepass_strip_pad(SP_HALO, KW),
+              "demons_correspondence_strip": k_df.correspondence_strip_pad(SP_HALO, KW),
+              "compose_smooth_strip": k_df.compose_smooth_strip_pad(SP_HALO, KW)}
 STRIP_PADDED = {"diffusion_block_strip": 5, "elastic_block_strip": 5, "fluid_iter_strip": 7,
                 "warp2d_strip": 1, "compose_strip": 2, "demons_onepass_strip": 4,
                 "demons_correspondence_strip": 4, "compose_smooth_strip": 4}
@@ -411,6 +434,9 @@ def phase_kernels(dev) -> dict:
     for nx, ny in KERNEL_SHAPES:
         iref, imov = (x[:nx, :ny].contiguous() for x in pair_on(dev, "blob", max(nx, ny)))
         check_shape(err, dev, gen, iref, imov, every=True)
+    for nx, ny in BORDER_SHAPES:
+        iref, imov = (x[:nx, :ny].contiguous() for x in pair_on(dev, "blob", max(nx, ny)))
+        check_demons(err, dev, gen, iref, imov)
     for n in HUGE_KERNEL_SHAPES:
         check_shape(err, dev, gen, *tiled_pair(n, dev), every=False)
         torch.cuda.empty_cache()
@@ -532,15 +558,15 @@ def check_strips(err: dict, dev, gen: torch.Generator, iref, imov) -> None:
 
 
 def check_demons_strips(err: dict, dev, imov, iref, small, far) -> None:
-    """K5-K7 on SP_STRIPS strips at halo SP_HALO, kernelwidth 5 and 11, each
-    padded by its exact reach: displacements of up to 2 px (inside the
+    """K5-K7 on SP_STRIPS strips at halo SP_HALO, each kernelwidth of
+    DEMONS_KWS, each padded by its exact reach: displacements of up to 2 px (inside the
     contract) against the plain versions and, concatenated, bit for bit
     against B10-B12; the +-40 px field (mostly outside it) against the plain
     versions only."""
     nx = imov.shape[0]
     shape, nxl, halo = tuple(imov.shape), nx // SP_STRIPS, SP_HALO
     c_small = (small.flip(1) * 0.5).contiguous()
-    for kw in (KW, 11):
+    for kw in DEMONS_KWS:
         onepass = (*ONEPASS_ARGS[:4], kw)
         corr = (DIFFEO_PARAMS[0], DIFFEO_PARAMS[1], DIFFEO_PARAMS[3], kw)
         sd = DIFFEO_PARAMS[2]
@@ -582,7 +608,7 @@ def check_shape(err: dict, dev, gen: torch.Generator, iref, imov, every: bool) -
     d = derivatives(iref, imov)
     g = stack_derivs(d.grad_i, d.it)
     del d
-    u = torch.randn((2, nx, ny), generator=gen, device=dev) * 2
+    u, disp, u_total = demons_fields(dev, gen, nx, ny)
     if every:
         for k in (1, 5, 8):
             check(err, "diffusion_block", diffusion_block(u, g, ALPHA, k),
@@ -590,15 +616,8 @@ def check_shape(err: dict, dev, gen: torch.Generator, iref, imov, every: bool) -
         check(err, "diffusion_step", diffusion_step_fused(u, g[:2], g[2], ALPHA),
               diffusion_step_ref(u, g[:2], g[2], ALPHA), shape)
 
-    # Displacements up to +-40 px: a smooth field plus noise, so that
-    # samples fall inside, on the edges and outside the grid.
-    i = torch.arange(nx, device=dev, dtype=torch.float32)[:, None] / nx
-    j = torch.arange(ny, device=dev, dtype=torch.float32)[None, :] / ny
-    disp = torch.stack([30 * torch.sin(6 * j + 1) * torch.cos(4 * i),
-                        30 * torch.cos(5 * i + 2) * torch.sin(3 * j)])
-    disp += torch.rand((2, nx, ny), generator=gen, device=dev) * 20 - 10
-    u_total = torch.randn((2, nx, ny), generator=gen, device=dev) * 5
-    oob = float((((i * nx + disp[0]) < 0) | ((i * nx + disp[0]) >= nx)).float().mean())
+    i = torch.arange(nx, device=dev, dtype=torch.float32)[:, None]
+    oob = float((((i + disp[0]) < 0) | ((i + disp[0]) >= nx)).float().mean())
     info = {"max_disp": float(disp.abs().max()), "oob_share_x": oob}
     check(err, "warp2d", warp2d(imov, disp), warp2d_ref(imov, disp), shape, **info)
     check(err, "compose", compose(u_total, disp), compose_ref(u_total, disp), shape, **info)
@@ -614,20 +633,7 @@ def check_shape(err: dict, dev, gen: torch.Generator, iref, imov, every: bool) -
         require(e <= SUMS_RTOL, f"logger_norms {shape}: sums {e}")
         err["logger_norms"] = max(err["logger_norms"], max_abs(sums, sums_ref))
 
-        # Demons: a small field (the main path's increments) and the
-        # +-40 px one.
-        for kw in (KW, 11):
-            for name, field in (("small", small), ("oob", disp)):
-                for addition in (False, True):
-                    args = (imov, iref, field, 1.0, 0.25, 2.0, 1.5, kw, addition, True)
-                    check(err, "demons_onepass", thirion_onepass(*args),
-                          thirion_onepass_ref(*args), shape, kw=kw, u=name,
-                          addition=addition)
-                args = (imov, iref, field, 0.25, 1.0, 2.0, kw)
-                check(err, "demons_correspondence", demons_correspondence(*args),
-                      demons_correspondence_ref(*args), shape, kw=kw, u=name)
-                check(err, "compose_smooth", compose_smooth(u_total, field, 2.0, kw),
-                      compose_smooth_ref(u_total, field, 2.0, kw), shape, kw=kw, c=name)
+        check_demons(err, dev, gen, iref, imov, small, disp, u_total)
 
         # Elastic and fluid: a field of up to 1 px (and, for fluid, a
         # nonzero velocity).
@@ -681,6 +687,42 @@ def check_shape(err: dict, dev, gen: torch.Generator, iref, imov, every: bool) -
     require(float(want[2]) < 0.5, f"fluid_metrics {shape}: jac_min {float(want[2])} >= 0.5")
 
 
+def demons_fields(dev, gen: torch.Generator, nx: int, ny: int):
+    """Fields from ``gen``: noise of 2 px, a displacement of up to +-40 px
+    (a smooth field plus noise, so that samples fall inside, on the edges
+    and outside the grid) and a motion of 5 px noise."""
+    u = torch.randn((2, nx, ny), generator=gen, device=dev) * 2
+    i = torch.arange(nx, device=dev, dtype=torch.float32)[:, None] / nx
+    j = torch.arange(ny, device=dev, dtype=torch.float32)[None, :] / ny
+    disp = torch.stack([30 * torch.sin(6 * j + 1) * torch.cos(4 * i),
+                        30 * torch.cos(5 * i + 2) * torch.sin(3 * j)])
+    disp += torch.rand((2, nx, ny), generator=gen, device=dev) * 20 - 10
+    u_total = torch.randn((2, nx, ny), generator=gen, device=dev) * 5
+    return u, disp, u_total
+
+
+def check_demons(err: dict, dev, gen: torch.Generator, iref, imov, small=None, disp=None,
+                 u_total=None) -> None:
+    """B10-B12 at every width of DEMONS_KWS, with a small field of up to
+    1.5 px (the main path's increments) and the +-40 px one (from
+    ``demons_fields`` where not given)."""
+    shape = tuple(iref.shape)
+    if small is None:
+        u, disp, u_total = demons_fields(dev, gen, *shape)
+        small = (torch.tanh(u) * 1.5).contiguous()
+    for kw in DEMONS_KWS:
+        for name, field in (("small", small), ("oob", disp)):
+            for addition in (False, True):
+                args = (imov, iref, field, 1.0, 0.25, 2.0, 1.5, kw, addition, True)
+                check(err, "demons_onepass", thirion_onepass(*args), thirion_onepass_ref(*args),
+                      shape, kw=kw, u=name, addition=addition)
+            args = (imov, iref, field, 0.25, 1.0, 2.0, kw)
+            check(err, "demons_correspondence", demons_correspondence(*args),
+                  demons_correspondence_ref(*args), shape, kw=kw, u=name)
+            check(err, "compose_smooth", compose_smooth(u_total, field, 2.0, kw),
+                  compose_smooth_ref(u_total, field, 2.0, kw), shape, kw=kw, c=name)
+
+
 def check_scalar(name: str, got: torch.Tensor, want: torch.Tensor, shape, **info) -> None:
     """Hold a kernel's scalar (max |R|^2, the minimum Jacobian determinant)
     against its plain version's, relatively."""
@@ -713,9 +755,10 @@ def pair_on(dev, pair: str, n: int):
     return tuple(torch.from_numpy(x).to(dev) for x in blob_pair(n))
 
 
-def run_main(dev, method: Method, regparams, nscales: int, iref, imov, **overrides):
+def run_main(dev, method: Method, regparams, nscales: int, iref, imov, niter: int = NITER,
+             **overrides):
     n = iref.shape[0]
-    sess = OpticalFlow2d((n, n), niter=[NITER] * (nscales + 1),
+    sess = OpticalFlow2d((n, n), niter=[niter] * (nscales + 1),
                          nscales=nscales, regularisation=method, regparams=regparams,
                          nrefine=NREFINE, device=dev, **overrides)
     torch.cuda.synchronize()
@@ -904,14 +947,15 @@ def profile_run(path: str, run) -> None:
                    "count": r.count} for r in top]})
 
 
-def phase_profile(dev, path: str) -> None:
-    """A dense main path (PATHS or DIFFUSION_TILED) under the profiler."""
-    _, method, regparams, pair, nscales = next(p for p in PATHS + (DIFFUSION_TILED,)
+def phase_profile(dev, path: str, niter: int = NITER) -> None:
+    """A dense main path (PATHS or TILED_DENSE) under the profiler, with
+    ``niter`` iterations a level at most."""
+    _, method, regparams, pair, nscales = next(p for p in PATHS + tuple(TILED_DENSE.values())
                                                if p[0] == path)
     iref, imov = pair_on(dev, pair, N_MAIN)
 
     def run():
-        _, res, _, _, _ = run_main(dev, method, regparams, nscales, iref, imov)
+        _, res, _, _, _ = run_main(dev, method, regparams, nscales, iref, imov, niter)
         return [t.iterations for t in res.traces], [t.regrids for t in res.traces]
 
     profile_run(path, run)
@@ -1045,12 +1089,12 @@ def median_ms(fn, runs: int = 20, warmup: int = 3, batch: int = 10) -> float:
     return float(np.median(times))
 
 
-def bound(name: str, npix: int) -> dict:
+def bound(name: str, npix: int, f32_per_s: float = PEAK_F32_PER_S) -> dict:
     """The least time the card could take for the kernel's work at
     ``npix`` pixels: bytes over the memory rate or operations over the
-    float32 rate, whichever is larger."""
+    float32 rate ``f32_per_s``, whichever is larger."""
     t_bytes = PLANES[name] * 4 * npix / PEAK_BYTES_PER_S * 1e3
-    t_ops = OPS[name] * npix / PEAK_F32_PER_S * 1e3
+    t_ops = OPS[name] * npix / f32_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1120,16 +1164,27 @@ def phase_times(dev) -> dict:
     emit({"phase": "times", "fluid_iteration": "two_pass", "shape": [n, n],
           "ms": median_ms(lambda: two(*step_args))})
     times.update(strip_times(dev, imov, g, u, v))
+    emit({"phase": "times", "demons_tiles": {
+        "demons_onepass": k_op.onepass_plan(KW),
+        "demons_correspondence": k_df.correspondence_plan(KW),
+        "compose_smooth": (k_df.SMALL_TILE, k_df.SMALL_TILE, 0)}, "kernelwidth": KW,
+        "plan": "(tile rows, tile columns, staging buffers)"})
+    for name in DEMONS_TIMED:
+        floor = (strip_bound(name, n // SP_STRIPS, n, STRIP_PADS[name], PEAK_F32_NO_FMA_PER_S)
+                 if name in STRIP_OF else bound(name, n * n, PEAK_F32_NO_FMA_PER_S))
+        emit({"phase": "times", "kernel": name, "instruction_floor": True, **floor,
+              "ms": times[name]["ms"]})
     return times
 
 
-def strip_bound(name: str, nxl: int, ny: int, pad: int) -> dict:
+def strip_bound(name: str, nxl: int, ny: int, pad: int,
+                f32_per_s: float = PEAK_F32_PER_S) -> dict:
     """The bound of a strip kernel: its dense kernel's work on the strip's
     pixels, plus the halo rows of its padded inputs read once."""
     dense = STRIP_OF[name]
     t_bytes = ((PLANES[dense] * nxl + STRIP_PADDED[name] * 2 * pad) * ny * 4
                / PEAK_BYTES_PER_S * 1e3)
-    t_ops = OPS[dense] * nxl * ny / PEAK_F32_PER_S * 1e3
+    t_ops = OPS[dense] * nxl * ny / f32_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1144,14 +1199,11 @@ def strip_times(dev, imov, g, u, v) -> dict:
     row0 = s * nxl
     up, vp, gp, ip = (x[s] for x in strip_inputs(dev, pad, u, v, g, imov))
     iref = imov.flip(0).contiguous()
-    # The demons strips at SP_HALO and kernelwidth KW, each on its exact reach.
-    pads = {"demons_onepass_strip": k_op.onepass_strip_pad(SP_HALO, KW),
-            "demons_correspondence_strip": k_df.correspondence_strip_pad(SP_HALO, KW),
-            "compose_smooth_strip": k_df.compose_smooth_strip_pad(SP_HALO, KW)}
-    ia5, ir5, v5 = (x[s] for x in strip_inputs(dev, pads["demons_onepass_strip"], imov, iref, v))
-    ia6, ir6, v6 = (x[s] for x in strip_inputs(dev, pads["demons_correspondence_strip"], imov,
+    ia5, ir5, v5 = (x[s] for x in strip_inputs(dev, STRIP_PADS["demons_onepass_strip"], imov,
                                                 iref, v))
-    u7, c7 = (x[s] for x in strip_inputs(dev, pads["compose_smooth_strip"], u, v))
+    ia6, ir6, v6 = (x[s] for x in strip_inputs(dev, STRIP_PADS["demons_correspondence_strip"], imov,
+                                                iref, v))
+    u7, c7 = (x[s] for x in strip_inputs(dev, STRIP_PADS["compose_smooth_strip"], u, v))
     v_strip = spatial._split(v, [dev] * SP_STRIPS)[s]
     vel_pad = (vp.flip(1) * 0.5).contiguous()
     pairs = {
@@ -1177,12 +1229,12 @@ def strip_times(dev, imov, g, u, v) -> dict:
     times = {}
     for name, (kern, plain, args) in pairs.items():
         # No PyTorch call computes these either: see phase_times.
-        p = pads.get(name, pad)
+        p = STRIP_PADS.get(name, pad)
         t = {"ms": median_ms(lambda: kern(*args)), "plain_ms": median_ms(lambda: plain(*args)),
              **strip_bound(name, nxl, n, p), "library_ms": None}
         times[name] = t
         emit({"phase": "times", "kernel": name, "shape": [nxl, n], "row0": row0, "pad": p,
-              **({"kernelwidth": KW, "halo": SP_HALO} if name in pads else {}), **t})
+              **({"kernelwidth": KW, "halo": SP_HALO} if name in STRIP_PADS else {}), **t})
     return times
 
 
@@ -1200,8 +1252,10 @@ def main() -> None:
     timed("build", phase_build)
     err = timed("kernels", phase_kernels, dev)
     main_launches = timed("main", phase_main, dev)
-    for path in ("diffeomorphic", "fluid", "elastic", "diffusion_tiled"):
+    for path in ("thirion", "diffeomorphic", "fluid", "elastic", "diffusion_tiled"):
         timed("profile", phase_profile, dev, path)
+    for path in ("thirion_tiled", "diffeo_tiled"):  # beside sp_thirion and sp_diffeo
+        timed("profile", phase_profile, dev, path, DEMONS_PROFILE_NITER)
     for name, *_ in SP_PATHS:
         timed("profile", phase_profile_sp, dev, name)
     parity_launches = timed("parity", phase_parity, dev)

@@ -12,16 +12,25 @@
 //   demons_correspondence_pallas (:401, body _corr_kernel :241) and
 //   compose_smooth_pallas (:481, body _compose_kernel :301), dense (B11,
 //   B12) and with prepadded=True (K6, K7).
-// Bound on this card: device-memory bandwidth. B11 reads iaux, iref and u
-//   and writes c, 24 B per pixel; B12 reads u and c and writes the new
-//   motion, 24 B per pixel: at 4096^2 each moves 403 MB, or 0.120 ms at
-//   3.35 TB/s. Their arithmetic is well under the float32 peak.
-// Design: the stages of demons_stages.cuh on a 32 x 32 output tile per
-//   thread block, as in demons_onepass.cu. B11 holds the tile extended by
-//   kw//2 + 1 (iwar and iref, then corr and the x pass); B12 loads c on the
-//   tile +- kw//2, composes it with u gathered from global memory at
-//   x + c, and smooths. The gathers are exact for any displacement, so the
-//   exp map's squarings, which grow the field, need no halo bound.
+// Bounds on this card. Bytes: B11 reads iaux, iref and u and writes c, 24 B
+//   per pixel; B12 reads u and c and writes the new motion, 24 B per pixel:
+//   at 4096^2 each moves 403 MB, or 0.120 ms at 3.35 TB/s. Operations: B11
+//   45 + 8k a pixel (85 at kw 5), B12 36 + 8k, under the bytes even at the
+//   float32 rate without fused multiply-adds (half of 67 TFLOP/s, as
+//   -fmad=false builds). Like B10, both are held by issued instructions and
+//   latency instead: index arithmetic, masks, IEEE divisions and the
+//   recomputed halo, and the gathers' latency with 16 (B11) warps an SM.
+// Design of B11 and K6: B10's front half (demons_onepass.cu), on the same
+//   persistent grid of TX x TY tiles, 64 x 64 up to kw 13: the tile
+//   extended by kw//2 + 1 in shared memory (iwar, then corr and the x
+//   pass), u and iref staged with cp.async, two buffers where they fit,
+//   the interior route and kw 5 with its taps known.
+// B12 and K7 (not redesigned): one thread block per 32 x 32 tile loads c on
+//   the tile +- kw//2, composes it with u gathered from global memory at
+//   x + c, and smooths, on the stages of demons_stages.cuh in their masked
+//   form with the tap count at run time. The gathers are exact for any
+//   displacement, so the exp map's squarings, which grow the field, need no
+//   halo bound.
 // Strips (kStrip, rows.cuh): the same stages on the strip's rows, the
 //   gathers' taps from the padded strip inside the strips' contract only
 //   (bilinear.cuh::strip_taps). An output row of K6 reaches kw//2 + halo + 2
@@ -36,99 +45,184 @@
 
 namespace {
 
-__host__ __device__ constexpr int correspondence_smem_floats(int k) {
-  // Buffer A: iwar and iref, e x e each (then the x pass, kTile x m);
-  // buffer B: corr, m x m per channel.
-  return 2 * (kTile + 2 * (k / 2 + 1)) * (kTile + 2 * (k / 2 + 1)) +
-         2 * (kTile + 2 * (k / 2)) * (kTile + 2 * (k / 2));
+__host__ __device__ constexpr int correspondence_smem_floats(int k, int tx, int ty, int nbuf) {
+  // Two buffers: stage buffers [u on the warp region, 2 planes | iref on
+  // the force region] x 2, work buffer A (iwar, then the x pass), B (corr).
+  // One buffer: P (u, then corr), Q (iwar) and R (iref), Q + R then holding
+  // the x pass.
+  const DemonsGeo g(k, tx, ty, k / 2 + 1);
+  const int stage = 2 * g.ex * g.ey + g.mx * g.my;
+  if (nbuf == 1) return stage + g.ex * g.ey;
+  return 2 * stage + cmax(g.ex * g.ey, 2 * tx * g.my) + 2 * g.mx * g.my;
 }
 
 __host__ __device__ constexpr int compose_smooth_smem_floats(int k) {
   // Buffer A: c on the tile +- kw//2 (then the x pass); buffer B: composed.
-  return 4 * (kTile + 2 * (k / 2)) * (kTile + 2 * (k / 2));
+  return 4 * (kSmallTile + 2 * (k / 2)) * (kSmallTile + 2 * (k / 2));
 }
 
-template <bool kStrip>
-__global__ void __launch_bounds__(kThreads)
+DemonsPlan correspondence_plan(int k) { return demons_plan(k, correspondence_smem_floats); }
+
+// One tile of B11 or K6, its inputs staged in su and sr.
+template <int K, int TX, int TY, bool kInterior, bool kStrip>
+__device__ __forceinline__ void correspondence_tile(const float* __restrict__ iaux,
+                                                    float* __restrict__ out, const Rows& rows,
+                                                    int ny, int halo, int k, const Taps& tf,
+                                                    float a, float b, float den_f,
+                                                    const float* su, const float* sr,
+                                                    float* iwar, float* corr, float* xs, int i0,
+                                                    int j0) {
+  constexpr int kN = demons_threads(TX, TY);
+  const DemonsGeo g(K > 0 ? K : k, TX, TY, (K > 0 ? K : k) / 2 + 1);
+  const Region w{g.ex, g.ey, i0 - g.r, j0 - g.r};
+  stage_warp<kN, kInterior, kStrip>(iaux, su, rows, ny, halo, w, iwar);
+  __syncthreads();
+  stage_force<kN, kInterior>(iwar, sr, w, rows.nx, ny, a, b, corr);
+  __syncthreads();
+  smooth_x<K, kN, kInterior>(corr, g.mx, g.my, i0, rows.nx, tf, k, xs);  // TX x my
+  __syncthreads();
+  float unused0 = 0.f, unused1 = 0.f;
+  smooth_y_store<K, kN, kInterior>(xs, TX, TY, g.my, i0, j0, rows, ny, tf, k, den_f, out, false,
+                                   GlobalCell{nullptr, rows, ny}, unused0, unused1);
+}
+
+template <int K, int TX, int TY, int kNBuf, bool kStrip>
+__global__ void __launch_bounds__(demons_threads(TX, TY))
 correspondence_kernel(const float* __restrict__ iaux, const float* __restrict__ iref,
                       const float* __restrict__ u, float* __restrict__ out, Rows rows, int ny,
                       int halo, int k, Taps taps_f, float a, float b) {
+  constexpr int kN = demons_threads(TX, TY);
   extern __shared__ float smem[];
-  const int c = k / 2;
-  const int r = c + 1;
-  const int e = kTile + 2 * r;   // iwar, iref: origin (i0 - r, j0 - r)
-  const int m = kTile + 2 * c;   // corr: origin (i0 - c, j0 - c)
-  const int nx = rows.nx;
-  float* sa = smem;
-  float* sb = sa + 2 * e * e;
-  const int i0 = rows.row0 + blockIdx.y * kTile, j0 = blockIdx.x * kTile;
+  const int kk = K > 0 ? K : k;
+  const DemonsGeo g(kk, TX, TY, kk / 2 + 1);
+  const int stage = 2 * g.ex * g.ey + g.mx * g.my;
+  float *stage_buf[2], *su, *sr, *iwar, *corr, *xs;
+  if (kNBuf == 2) {
+    stage_buf[0] = smem;
+    stage_buf[1] = smem + stage;
+    iwar = xs = smem + 2 * stage;
+    corr = iwar + cmax(g.ex * g.ey, 2 * TX * g.my);
+    su = sr = nullptr;
+  } else {
+    su = corr = smem;
+    iwar = xs = su + 2 * g.ex * g.ey;
+    sr = iwar + g.ex * g.ey;
+    stage_buf[0] = stage_buf[1] = su;
+  }
+  const float den_f = tap_total<K>(taps_f, k) * tap_total<K>(taps_f, k);
+  const int tiles_y = (ny + TY - 1) / TY, tiles = demons_tiles(rows, ny, TX, TY);
 
-  stage_warp<kStrip>(iaux, iref, u, rows, ny, halo, i0 - r, j0 - r, e, sa, sa + e * e);
-  __syncthreads();
-  stage_force(sa, sa + e * e, e, i0 - r, j0 - r, nx, ny, a, b, sb);
-  __syncthreads();
-  smooth_x(sb, m, m, i0, nx, taps_f, k, sa);   // kTile x m
-  __syncthreads();
-  float unused0 = 0.f, unused1 = 0.f;
-  smooth_y_store<false>(sa, m, i0, j0, rows, ny, taps_f, k, out, nullptr, unused0, unused1);
+  // Start the copies of tile t's u (warp region) and iref (force region).
+  auto stage_tile = [&](int t, float* to_u, float* to_ref) {
+    const int i0 = rows.row0 + (t / tiles_y) * TX, j0 = (t % tiles_y) * TY;
+    stage_region<kN>(u, 2, rows, ny, Region{g.ex, g.ey, i0 - g.r, j0 - g.r}, to_u);
+    stage_region<kN>(iref, 1, rows, ny, Region{g.mx, g.my, i0 - g.r + 1, j0 - g.r + 1}, to_ref);
+    cp_async_commit();
+  };
+
+  int t = blockIdx.x, buf = 0;
+  if (kNBuf == 2 && t < tiles) stage_tile(t, stage_buf[0], stage_buf[0] + 2 * g.ex * g.ey);
+  for (; t < tiles; t += gridDim.x, buf ^= 1) {
+    if (kNBuf == 2) {
+      const int next = t + gridDim.x;
+      if (next < tiles) stage_tile(next, stage_buf[buf ^ 1], stage_buf[buf ^ 1] + 2 * g.ex * g.ey);
+      else cp_async_commit();
+      cp_async_wait<1>();
+      su = stage_buf[buf];
+      sr = su + 2 * g.ex * g.ey;
+    } else {
+      stage_tile(t, su, sr);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int i0 = rows.row0 + (t / tiles_y) * TX, j0 = (t % tiles_y) * TY;
+    if (interior_tile(rows, ny, i0, j0, TX, TY, g.r)) {
+      correspondence_tile<K, TX, TY, true, kStrip>(iaux, out, rows, ny, halo, k, taps_f, a, b,
+                                                   den_f, su, sr, iwar, corr, xs, i0, j0);
+    } else {
+      correspondence_tile<K, TX, TY, false, kStrip>(iaux, out, rows, ny, halo, k, taps_f, a, b,
+                                                    den_f, su, sr, iwar, corr, xs, i0, j0);
+    }
+    __syncthreads();
+  }
 }
 
 template <bool kStrip>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(demons_threads(kSmallTile, kSmallTile))
 compose_smooth_kernel(const float* __restrict__ u, const float* __restrict__ cin,
                       float* __restrict__ out, Rows rows, int ny, int halo, int k,
                       Taps taps_d) {
+  constexpr int kN = demons_threads(kSmallTile, kSmallTile);
   extern __shared__ float smem[];
   const int c = k / 2;
-  const int d = kTile + 2 * c;   // c and composed: origin (i0 - c, j0 - c)
+  const int d = kSmallTile + 2 * c;   // c and composed: origin (i0 - c, j0 - c)
   float* sa = smem;
   float* sb = sa + 2 * d * d;
-  const int i0 = rows.row0 + blockIdx.y * kTile, j0 = blockIdx.x * kTile;
+  const int i0 = rows.row0 + blockIdx.y * kSmallTile, j0 = blockIdx.x * kSmallTile;
   const size_t n = rows.in_plane(ny);
+  const Region s{d, d, i0 - c, j0 - c};
 
-  for (int li = threadIdx.y; li < d; li += kThreadsX) {
-    const int gi = i0 - c + li;
-    const bool row_in = rows.loadable(gi - rows.row0);
-    for (int lj = threadIdx.x; lj < d; lj += kThreadsY) {
-      const int gj = j0 - c + lj;
-      float c0 = 0.f, c1 = 0.f;
-      if (row_in && inside(gj, ny)) {
-        const size_t p = rows.in_row(gi - rows.row0, ny) + gj;
-        c0 = cin[p];
-        c1 = cin[n + p];
-      }
-      sa[li * d + lj] = c0;
-      sa[d * d + li * d + lj] = c1;
+  for_cells<kN>(d, d, [&](int li, int lj, int l) {
+    const int gi = s.gi0 + li, gj = s.gj0 + lj;
+    float c0 = 0.f, c1 = 0.f;
+    if (rows.loadable(gi - rows.row0) && inside(gj, ny)) {
+      const size_t p = rows.in_row(gi - rows.row0, ny) + gj;
+      c0 = cin[p];
+      c1 = cin[n + p];
     }
-  }
+    sa[l] = c0;
+    sa[d * d + l] = c1;
+  });
   __syncthreads();
-  stage_accumulate<false, kStrip>(sa, d, i0 - c, j0 - c, u, rows, ny, halo, sb);
+  const GlobalCell cell{u, rows, ny};
+  // Two cells in flight: fewer registers, so that more 256-thread blocks fit.
+  stage_accumulate<kN, false, false, kStrip, 2>(sa, s, u, cell, rows, ny, halo, sb);
   __syncthreads();
-  smooth_x(sb, d, d, i0, rows.nx, taps_d, k, sa);   // kTile x d
+  smooth_x<0, kN, false>(sb, d, d, i0, rows.nx, taps_d, k, sa);   // kSmallTile x d
   __syncthreads();
   float unused0 = 0.f, unused1 = 0.f;
-  smooth_y_store<false>(sa, d, i0, j0, rows, ny, taps_d, k, out, nullptr, unused0, unused1);
+  smooth_y_store<0, kN, false>(sa, kSmallTile, kSmallTile, d, i0, j0, rows, ny, taps_d, k, 0.f,
+                               out, false, cell, unused0, unused1);
 }
 
-template <typename Kernel>
-int prepare(Kernel kernel, int smem_floats) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_floats * sizeof(float))));
-}
-
-template <bool kStrip>
+template <int K, int TX, int TY, int kNBuf, bool kStrip>
 int launch_correspondence(const float* iaux, const float* iref, const float* u, float* out,
-                          const Rows& rows, int ny, int halo, int k, const float* taps_f,
-                          float a, float b, cudaStream_t stream) {
+                          const Rows& rows, int ny, int halo, int k, const Taps& tf, float a,
+                          float b, cudaStream_t stream) {
+  static GridCache cache;
+  auto* kernel = correspondence_kernel<K, TX, TY, kNBuf, kStrip>;
+  const int smem =
+      correspondence_smem_floats(k, TX, TY, kNBuf) * static_cast<int>(sizeof(float));
+  int blocks;
+  const int rc = persistent_grid(kernel, demons_threads(TX, TY), smem,
+                                 demons_tiles(rows, ny, TX, TY), &cache, &blocks);
+  if (rc != 0) return rc;
+  kernel<<<blocks, demons_threads(TX, TY), smem, stream>>>(iaux, iref, u, out, rows, ny, halo, k,
+                                                           tf, a, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of k's plan: kw 5 with its taps known, the others at
+// run time.
+template <bool kStrip>
+int dispatch_correspondence(const float* iaux, const float* iref, const float* u, float* out,
+                            const Rows& rows, int ny, int halo, int k, const float* taps_f,
+                            float a, float b, cudaStream_t stream) {
   Taps tf;
   if (!make_taps(taps_f, k, &tf)) return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = prepare(correspondence_kernel<kStrip>, correspondence_smem_floats(k));
-  if (rc != 0) return rc;
-  correspondence_kernel<kStrip><<<tile_grid(rows, ny), dim3(kThreadsY, kThreadsX),
-                                  correspondence_smem_floats(k) * sizeof(float), stream>>>(
-      iaux, iref, u, out, rows, ny, halo, k, tf, a, b);
-  return static_cast<int>(cudaGetLastError());
+  const DemonsPlan p = correspondence_plan(k);
+  if (p.tx == kTileX && p.ty == kTileY && p.nbuf == kTileBufs)
+    return k == 5 ? launch_correspondence<5, kTileX, kTileY, kTileBufs, kStrip>(
+                        iaux, iref, u, out, rows, ny, halo, k, tf, a, b, stream)
+                  : launch_correspondence<0, kTileX, kTileY, kTileBufs, kStrip>(
+                        iaux, iref, u, out, rows, ny, halo, k, tf, a, b, stream);
+  if (p.tx == kSmallTile && p.nbuf == 2)
+    return launch_correspondence<0, kSmallTile, kSmallTile, 2, kStrip>(
+        iaux, iref, u, out, rows, ny, halo, k, tf, a, b, stream);
+  if (p.tx == kSmallTile && p.nbuf == 1)
+    return launch_correspondence<0, kSmallTile, kSmallTile, 1, kStrip>(
+        iaux, iref, u, out, rows, ny, halo, k, tf, a, b, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool kStrip>
@@ -136,18 +230,25 @@ int launch_compose_smooth(const float* u, const float* c, float* out, const Rows
                           int halo, int k, const float* taps_d, cudaStream_t stream) {
   Taps td;
   if (!make_taps(taps_d, k, &td)) return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = prepare(compose_smooth_kernel<kStrip>, compose_smooth_smem_floats(k));
-  if (rc != 0) return rc;
-  compose_smooth_kernel<kStrip><<<tile_grid(rows, ny), dim3(kThreadsY, kThreadsX),
-                                  compose_smooth_smem_floats(k) * sizeof(float), stream>>>(
+  const int smem = compose_smooth_smem_floats(k) * static_cast<int>(sizeof(float));
+  const cudaError_t err = cudaFuncSetAttribute(
+      compose_smooth_kernel<kStrip>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((ny + kSmallTile - 1) / kSmallTile, (rows.nxl + kSmallTile - 1) / kSmallTile);
+  compose_smooth_kernel<kStrip><<<grid, demons_threads(kSmallTile, kSmallTile), smem, stream>>>(
       u, c, out, rows, ny, halo, k, td);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Shared memory of a B11 (and K6) thread block at kernelwidth k: its plan's,
+// or, where no tile fits, the smallest layout's.
 extern "C" int of2d_demons_correspondence_smem_bytes(int k) {
-  return static_cast<int>(correspondence_smem_floats(k) * sizeof(float));
+  const DemonsPlan p = correspondence_plan(k);
+  const int floats = p.tx ? correspondence_smem_floats(k, p.tx, p.ty, p.nbuf)
+                          : correspondence_smem_floats(k, kSmallTile, kSmallTile, 1);
+  return floats * static_cast<int>(sizeof(float));
 }
 
 extern "C" int of2d_compose_smooth_smem_bytes(int k) {
@@ -160,8 +261,8 @@ extern "C" int of2d_demons_correspondence(const float* iaux, const float* iref,
                                           const float* u, float* out, int nx, int ny, int k,
                                           const float* taps_f, float a, float b,
                                           cudaStream_t stream) {
-  return launch_correspondence<false>(iaux, iref, u, out, whole_image(nx), ny, 0, k, taps_f, a,
-                                      b, stream);
+  return dispatch_correspondence<false>(iaux, iref, u, out, whole_image(nx), ny, 0, k, taps_f, a,
+                                        b, stream);
 }
 
 // B12: u, c [2, nx, ny] -> Gaussian(sigma_d) of compose(u, c), [2, nx, ny];
@@ -183,8 +284,8 @@ extern "C" int of2d_demons_correspondence_strip(const float* iaux_pad, const flo
   const Rows rows{nxl, pad, row0, nx_glob};
   if (halo < 0 || !strip_ok(rows, k / 2 + halo + 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_correspondence<true>(iaux_pad, iref_pad, u_pad, out, rows, ny, halo, k, taps_f,
-                                     a, b, stream);
+  return dispatch_correspondence<true>(iaux_pad, iref_pad, u_pad, out, rows, ny, halo, k, taps_f,
+                                       a, b, stream);
 }
 
 // K7, one strip: u_pad, c_pad [2, nxl + 2 pad, ny] -> [2, nxl, ny]. Needs

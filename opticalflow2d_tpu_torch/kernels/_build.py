@@ -49,7 +49,7 @@ _SIGNATURES = {
     "of2d_compose_strip": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "of2d_logger_norms_nblocks": ((_I, _I), _I),
     "of2d_logger_norms": ((_P, _P, _P, _P, _I, _I, _P), _I),
-    "of2d_demons_nblocks": ((_I, _I), _I),
+    "of2d_demons_nblocks": ((_I, _I, _I), _I),
     "of2d_demons_onepass_smem_bytes": ((_I,), _I),
     "of2d_demons_onepass": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _FA, _FA, _F, _F, _I, _P),
                             _I),

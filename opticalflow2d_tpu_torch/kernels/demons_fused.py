@@ -10,8 +10,10 @@ between them (CUDA ``csrc/demons_fused.cu``, the counterpart of
 Each thread block keeps its tile's intermediates in shared memory, so a
 kernelwidth has to fit there (``demons_onepass.tile_fits``, the widest of
 the three demons kernels); ``solvers.demons`` routes wider ones to the op
-chain before any launch. The gathers are exact for any displacement: no
-halo bound, no fallback.
+chain before any launch. B11 takes a 64 x 64 tile where its shared memory
+holds it with two staging buffers, else 32 x 32 (``correspondence_plan``);
+B12 a 32 x 32 one. The gathers are exact for any displacement: no halo
+bound, no fallback.
 
 ``demons_correspondence_strip`` (K6) and ``compose_smooth_strip`` (K7) are
 the same on one strip of the strip-parallel driver (``parallel.spatial``):
@@ -34,21 +36,71 @@ from opticalflow2d_tpu_torch.ops.conv import convolve2d_clip, convolve2d_clip_ro
 from opticalflow2d_tpu_torch.ops.grid import partial_x_rows, partial_y
 from opticalflow2d_tpu_torch.solvers.base import Derivatives, demons_force, derivatives
 
-TILE = 32       # output tile of every demons kernel (csrc/demons_stages.cuh)
-WARPS = 8       # warps per thread block
+# The kernels' tiles and staging (csrc/demons_stages.cuh): B10 and B11 take
+# the first plan (x rows, y columns, staging buffers) whose shared memory
+# fits a thread block; B12 and K7 a SMALL_TILE square.
+TILE = (64, 64)
+SMALL_TILE = 32
+PLANS = ((*TILE, 2), (SMALL_TILE, SMALL_TILE, 2), (SMALL_TILE, SMALL_TILE, 1))
 MAX_TAPS = 64   # the kernels' tap array (kMaxTaps)
+# Shared memory a thread block may use on the H100 (sm_90, opt-in), the
+# limit the plans are chosen by; the wrappers check the card's own.
+MAX_SMEM_BYTES = 232448
+
+
+def threads(tx: int, ty: int) -> int:
+    """Threads of a block owning a ``tx x ty`` tile (``demons_threads``)."""
+    return 512 if tx * ty >= 2048 else 256
+
+
+def regions(kernelwidth: int, tx: int, ty: int, reach: int):
+    """``(ex, ey, mx, my, dx, dy)``: the warp region (the tile extended by
+    ``reach``), the force region (by ``reach - 1``) and B10's smoothed
+    correspondence (by ``kernelwidth // 2``) of one tile (``DemonsGeo``)."""
+    c = kernelwidth // 2
+    return (tx + 2 * reach, ty + 2 * reach, tx + 2 * reach - 2, ty + 2 * reach - 2,
+            tx + 2 * c, ty + 2 * c)
+
+
+def correspondence_smem_floats(kernelwidth: int, tx: int, ty: int, nbuf: int) -> int:
+    """Floats of shared memory of one B11 thread block on plan ``(tx, ty,
+    nbuf)`` (``demons_fused.cu``)."""
+    ex, ey, mx, my, _, _ = regions(kernelwidth, tx, ty, kernelwidth // 2 + 1)
+    stage = 2 * ex * ey + mx * my
+    if nbuf == 1:
+        return stage + ex * ey
+    return 2 * stage + max(ex * ey, 2 * tx * my) + 2 * mx * my
+
+
+def plan(kernelwidth: int, smem_floats):
+    """The first of ``PLANS`` whose ``smem_floats`` fits a thread block, or
+    None (``demons_plan``)."""
+    for p in PLANS:
+        if 4 * smem_floats(kernelwidth, *p) <= MAX_SMEM_BYTES:
+            return p
+    return None
+
+
+def plan_smem_bytes(kernelwidth: int, smem_floats) -> int:
+    """Shared memory of a thread block on the kernelwidth's plan, or, where
+    none fits, of the smallest layout (more than a block has)."""
+    p = plan(kernelwidth, smem_floats) or PLANS[-1]
+    return 4 * smem_floats(kernelwidth, *p)
+
+
+def correspondence_plan(kernelwidth: int):
+    """B11's and K6's ``(tx, ty, nbuf)`` at this kernelwidth, or None."""
+    return plan(kernelwidth, correspondence_smem_floats)
 
 
 def correspondence_smem_bytes(kernelwidth: int) -> int:
     """Shared memory of one B11 thread block (``demons_fused.cu``)."""
-    c = kernelwidth // 2
-    e, m = TILE + 2 * (c + 1), TILE + 2 * c
-    return 4 * (2 * e * e + 2 * m * m)
+    return plan_smem_bytes(kernelwidth, correspondence_smem_floats)
 
 
 def compose_smooth_smem_bytes(kernelwidth: int) -> int:
     """Shared memory of one B12 thread block (``demons_fused.cu``)."""
-    d = TILE + 2 * (kernelwidth // 2)
+    d = SMALL_TILE + 2 * (kernelwidth // 2)
     return 4 * 4 * d * d
 
 

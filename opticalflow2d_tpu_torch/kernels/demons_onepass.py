@@ -11,10 +11,12 @@ carries diffeomorphic demons where the exp map is the identity
 (``solvers.demons.expmap_identity_regime``).
 
 A thread block holds its tile extended by ``2*(kernelwidth//2) + 1`` on
-every side in shared memory; ``tile_fits`` says whether a kernelwidth
-fits, and ``solvers.demons`` routes wider ones to the op chain before any
-launch. The gathers are exact for any displacement: no halo bound, no
-fallback.
+every side in shared memory: 64 x 64 with two staging buffers where that
+fits, else 32 x 32 with two or one (``onepass_plan``); ``tile_fits`` says
+whether a kernelwidth fits at all, and ``solvers.demons`` routes wider ones
+to the op chain before any launch. The Logger partials have one row a tile
+(``onepass_tiles``). The gathers are exact for any displacement: no halo
+bound, no fallback.
 
 ``thirion_onepass_strip`` (K5) is the same iteration, by composition and
 without the Logger sums, on one strip of the strip-parallel driver
@@ -31,36 +33,56 @@ from opticalflow2d_tpu_torch import kernels
 from opticalflow2d_tpu_torch.kernels import _build
 from opticalflow2d_tpu_torch.kernels.demons_fused import (
     MAX_TAPS,
-    TILE,
-    WARPS,
     check_demons_inputs,
     check_strip_inputs,
     compose_smooth_rows,
     correspondence_rows,
     demons_correspondence_ref,
+    plan,
+    plan_smem_bytes,
+    regions,
     strip_pad_rows,
     taps_array,
+    threads,
 )
 from opticalflow2d_tpu_torch.kernels.logger_norms import logger_norms_ref
 from opticalflow2d_tpu_torch.kernels.warp_fused import compose_ref
 from opticalflow2d_tpu_torch.ops.conv import convolve2d_clip
 
-# Shared memory a thread block may use on the H100 (sm_90, opt-in), the
-# limit ``tile_fits`` routes by; the wrappers check the card's own.
-MAX_SMEM_BYTES = 232448
+
+def onepass_smem_floats(kernelwidth: int, tx: int, ty: int, nbuf: int) -> int:
+    """Floats of shared memory of one B10 thread block on plan ``(tx, ty,
+    nbuf)`` (``demons_onepass.cu``)."""
+    ex, ey, mx, my, dx, dy = regions(kernelwidth, tx, ty, 2 * (kernelwidth // 2) + 1)
+    stage = 2 * ex * ey + mx * my
+    red = 2 * (threads(tx, ty) // 32)
+    if nbuf == 1:
+        return stage + ex * ey + red
+    return (2 * stage + max(ex * ey, 2 * dx * my, 2 * dx * dy)
+            + max(2 * mx * my, 2 * dx * dy, 2 * tx * dy) + red)
+
+
+def onepass_plan(kernelwidth: int):
+    """B10's and K5's ``(tx, ty, nbuf)`` at this kernelwidth, or None."""
+    return plan(kernelwidth, onepass_smem_floats)
 
 
 def onepass_smem_bytes(kernelwidth: int) -> int:
     """Shared memory of one B10 thread block (``demons_onepass.cu``)."""
-    c = kernelwidth // 2
-    e, m = TILE + 2 * (2 * c + 1), TILE + 4 * c
-    return 4 * (2 * e * e + 2 * m * m + 2 * WARPS)
+    return plan_smem_bytes(kernelwidth, onepass_smem_floats)
+
+
+def onepass_tiles(nx: int, ny: int, kernelwidth: int) -> int:
+    """B10's tiles on an ``nx x ny`` image (a strip: its ``nxl`` rows): the
+    rows of its Logger partials (``of2d_demons_nblocks``)."""
+    tx, ty, _ = onepass_plan(kernelwidth)
+    return -(-nx // tx) * -(-ny // ty)
 
 
 def tile_fits(kernelwidth: int) -> bool:
     """Whether the demons kernels take this kernelwidth: B10's tile, the
     widest of the three, fits an H100 thread block's shared memory."""
-    return kernelwidth <= MAX_TAPS and onepass_smem_bytes(kernelwidth) <= MAX_SMEM_BYTES
+    return kernelwidth <= MAX_TAPS and onepass_plan(kernelwidth) is not None
 
 
 def thirion_onepass_ref(iaux: torch.Tensor, iref: torch.Tensor, u: torch.Tensor,
@@ -92,8 +114,8 @@ def thirion_onepass(iaux: torch.Tensor, iref: torch.Tensor, u: torch.Tensor,
     out = torch.empty_like(u)
     partials = sums = None
     if with_errors:
-        nblocks = _build.load().of2d_demons_nblocks(nx, ny)
-        partials = torch.empty((nblocks, 2), dtype=u.dtype, device=u.device)
+        partials = torch.empty((onepass_tiles(nx, ny, kernelwidth), 2), dtype=u.dtype,
+                               device=u.device)
         sums = torch.empty(2, dtype=u.dtype, device=u.device)
     _build.launch(
         "of2d_demons_onepass", u.device, iaux.data_ptr(), iref.data_ptr(), u.data_ptr(),

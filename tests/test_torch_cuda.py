@@ -142,7 +142,15 @@ def _demons_inputs(nx, ny, dev, scale):
     return imov, iref, (torch.tanh(u) * scale).contiguous()
 
 
-@pytest.mark.parametrize("shape,kw,scale", [((256, 256), 5, 1.5), ((100, 77), 11, 30.0)])
+# kw 5 (taps known at compile time, 64 x 64 tiles), 3 and 7 (64 x 64 at run
+# time), 11 (32 x 32, two staging buffers) and 43 (32 x 32, one); 4 x 4 and
+# 33 x 1000 have border tiles only.
+DEMONS_CASES = [((256, 256), 5, 1.5), ((100, 77), 11, 30.0), ((256, 256), 3, 1.5),
+                ((256, 256), 7, 30.0), ((100, 77), 43, 1.5), ((4, 4), 5, 1.5),
+                ((33, 1000), 7, 30.0)]
+
+
+@pytest.mark.parametrize("shape,kw,scale", DEMONS_CASES)
 @pytest.mark.parametrize("addition", [False, True])
 def test_demons_onepass_matches_plain(cuda, shape, kw, scale, addition):
     iaux, iref, u = _demons_inputs(*shape, cuda, scale)
@@ -154,7 +162,7 @@ def test_demons_onepass_matches_plain(cuda, shape, kw, scale, addition):
     assert _max_abs(demons_onepass.thirion_onepass(*args), want) <= FIELD_TOL
 
 
-@pytest.mark.parametrize("shape,kw,scale", [((256, 256), 5, 1.5), ((100, 77), 11, 30.0)])
+@pytest.mark.parametrize("shape,kw,scale", DEMONS_CASES)
 def test_demons_correspondence_and_compose_smooth_match_plain(cuda, shape, kw, scale):
     iaux, iref, u = _demons_inputs(*shape, cuda, scale)
     c = demons_fused.demons_correspondence(iaux, iref, u, 0.25, 1.0, 2.0, kw)
@@ -167,12 +175,15 @@ def test_demons_correspondence_and_compose_smooth_match_plain(cuda, shape, kw, s
 
 def test_demons_smem_sizes_match_the_kernels(cuda):
     lib = _build.load()
-    for kw in (1, 5, 11, 43):
+    for kw in (1, 3, 5, 7, 11, 23, 25, 43, 45):
         assert lib.of2d_demons_onepass_smem_bytes(kw) == demons_onepass.onepass_smem_bytes(kw)
         assert lib.of2d_demons_correspondence_smem_bytes(kw) == \
             demons_fused.correspondence_smem_bytes(kw)
         assert lib.of2d_compose_smooth_smem_bytes(kw) == demons_fused.compose_smooth_smem_bytes(kw)
-    assert lib.of2d_max_smem_optin(0) >= demons_onepass.MAX_SMEM_BYTES
+    for nx, ny in ((4, 4), (33, 1000), (250, 4096), (1000, 777)):
+        for kw in (5, 11, 43):
+            assert lib.of2d_demons_nblocks(nx, ny, kw) == demons_onepass.onepass_tiles(nx, ny, kw)
+    assert lib.of2d_max_smem_optin(0) >= demons_fused.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("method,extra", [

@@ -215,7 +215,8 @@ def test_routes_and_tile_fit():
     """The route comes from the configuration alone; kernelwidth 43 is the
     widest whose one-pass tile fits an H100 block's shared memory."""
     assert tonepass.tile_fits(43) and not tonepass.tile_fits(45)
-    assert tonepass.onepass_smem_bytes(5) == 4 * (2 * 42 * 42 + 2 * 40 * 40 + 16)
+    assert tonepass.onepass_smem_bytes(5) == 4 * (2 * (2 * 74 * 74 + 72 * 72) + 2 * 68 * 72
+                                                  + 2 * 72 * 72 + 32)
     assert tfused.correspondence_smem_bytes(5) <= tonepass.onepass_smem_bytes(5)
     assert tfused.compose_smooth_smem_bytes(5) <= tonepass.onepass_smem_bytes(5)
     assert tdemons.expmap_identity_regime(1.0, 0.25)
