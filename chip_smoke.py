@@ -440,6 +440,8 @@ def phase_kernels(dev) -> dict:
     for n in HUGE_KERNEL_SHAPES:
         check_shape(err, dev, gen, *tiled_pair(n, dev), every=False)
         torch.cuda.empty_cache()
+    check_wide_offsets(err, dev, gen)
+    torch.cuda.empty_cache()
     for nx, ny in STRIP_SHAPES:
         iref, imov = (x[:nx, :ny].contiguous() for x in pair_on(dev, "blob", max(nx, ny)))
         check_strips(err, dev, gen, iref, imov)
@@ -685,6 +687,34 @@ def check_shape(err: dict, dev, gen: torch.Generator, iref, imov, every: bool) -
         check_scalar("fluid_metrics", got[2], want[2], shape, out="jac_min", u=name)
         err["fluid_metrics"] = max(err["fluid_metrics"], max_abs(got, want))
     require(float(want[2]) < 0.5, f"fluid_metrics {shape}: jac_min {float(want[2])} >= 0.5")
+
+
+def check_wide_offsets(err: dict, dev, gen: torch.Generator) -> None:
+    """B12 and K7 where twice an input plane reaches 2^31 floats, so that
+    they take 64-bit tap offsets: a 16384 x 65536 field, and the same field
+    as one strip of its inner rows padded by K7's reach. Each is held on 64
+    rows near its end against K7's plain version on those rows, given their
+    global index: inside the contract (the field is under 2 px) those are
+    B12's rows, and their coordinates round as the kernel's do."""
+    nx, ny, rows, sd = 16384, 65536, 64, DIFFEO_PARAMS[2]
+    pad = k_df.compose_smooth_strip_pad(SP_HALO, KW)
+    u = torch.zeros((2, nx, ny), device=dev)
+    u[:, pad:-pad] = torch.randn((2, nx - 2 * pad, ny), generator=gen, device=dev)
+    c = (torch.tanh(u.roll(1, -1)) * 1.5).contiguous()
+    for name, fn, nx_img, off in (
+            ("compose_smooth", lambda: compose_smooth(u, c, sd, KW), nx, 0),
+            ("compose_smooth_strip",
+             lambda: k_df.compose_smooth_strip(u, c, 0, nx - 2 * pad, sd, KW, SP_HALO, pad),
+             nx - 2 * pad, pad)):
+        got = fn()
+        g0 = nx_img - 4 * rows  # the rows' global index; padded row g0 + off
+        want = k_df.compose_smooth_strip_ref(
+            u[:, g0 + off - pad:g0 + off + rows + pad].contiguous(),
+            c[:, g0 + off - pad:g0 + off + rows + pad].contiguous(), g0, nx_img, sd, KW,
+            SP_HALO, pad)
+        check(err, name, got[:, g0:g0 + rows], want, (nx_img, ny), kw=KW, offsets="64-bit",
+              rows=[g0, g0 + rows])
+        del got
 
 
 def demons_fields(dev, gen: torch.Generator, nx: int, ny: int):
@@ -1167,7 +1197,7 @@ def phase_times(dev) -> dict:
     emit({"phase": "times", "demons_tiles": {
         "demons_onepass": k_op.onepass_plan(KW),
         "demons_correspondence": k_df.correspondence_plan(KW),
-        "compose_smooth": (k_df.SMALL_TILE, k_df.SMALL_TILE, 0)}, "kernelwidth": KW,
+        "compose_smooth": k_df.compose_smooth_plan(KW)}, "kernelwidth": KW,
         "plan": "(tile rows, tile columns, staging buffers)"})
     for name in DEMONS_TIMED:
         floor = (strip_bound(name, n // SP_STRIPS, n, STRIP_PADS[name], PEAK_F32_NO_FMA_PER_S)

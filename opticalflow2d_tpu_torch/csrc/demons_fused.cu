@@ -19,18 +19,27 @@
 //   float32 rate without fused multiply-adds (half of 67 TFLOP/s, as
 //   -fmad=false builds). Like B10, both are held by issued instructions and
 //   latency instead: index arithmetic, masks, IEEE divisions and the
-//   recomputed halo, and the gathers' latency with 16 (B11) warps an SM.
+//   recomputed halo, and the gathers' latency with 16 (B11) or 32 (B12)
+//   warps an SM.
 // Design of B11 and K6: B10's front half (demons_onepass.cu), on the same
 //   persistent grid of TX x TY tiles, 64 x 64 up to kw 13: the tile
 //   extended by kw//2 + 1 in shared memory (iwar, then corr and the x
 //   pass), u and iref staged with cp.async, two buffers where they fit,
 //   the interior route and kw 5 with its taps known.
-// B12 and K7 (not redesigned): one thread block per 32 x 32 tile loads c on
-//   the tile +- kw//2, composes it with u gathered from global memory at
-//   x + c, and smooths, on the stages of demons_stages.cuh in their masked
-//   form with the tap count at run time. The gathers are exact for any
-//   displacement, so the exp map's squarings, which grow the field, need no
-//   halo bound.
+// Design of B12 and K7: a persistent grid of two 512-thread blocks an SM (64
+//   registers a thread), each walking 64 x 64 tiles (32 x 32 past kw 57):
+//   c's two planes on the tile +- kw//2 staged with cp.async (zero-filled
+//   off the image or the padded strip), composed with u gathered from
+//   global memory at x + c (two cells' taps in flight, 32-bit offsets where
+//   twice an input plane stays below 2^31), the x pass written back over
+//   the staged c, the y pass into the output. Interior tiles skip the
+//   masks and take one denominator; kw 5 is compiled with its taps known.
+//   One staging buffer, not two: the SM's other block computes while this
+//   one copies, and two 74 KB blocks leave the L1 more room for the
+//   gathers of u than two 111 KB ones (PERF.md: the sweep). The gathers are
+//   exact for any displacement, so the exp map's squarings, which grow the
+//   field, need no halo bound. At kw 5 on 4096^2 the compose's gathers take
+//   half of the time, the staging and the store a third (PERF.md).
 // Strips (kStrip, rows.cuh): the same stages on the strip's rows, the
 //   gathers' taps from the padded strip inside the strips' contract only
 //   (bilinear.cuh::strip_taps). An output row of K6 reaches kw//2 + halo + 2
@@ -56,12 +65,27 @@ __host__ __device__ constexpr int correspondence_smem_floats(int k, int tx, int 
   return 2 * stage + cmax(g.ex * g.ey, 2 * tx * g.my) + 2 * g.mx * g.my;
 }
 
-__host__ __device__ constexpr int compose_smooth_smem_floats(int k) {
-  // Buffer A: c on the tile +- kw//2 (then the x pass); buffer B: composed.
-  return 4 * (kSmallTile + 2 * (k / 2)) * (kSmallTile + 2 * (k / 2));
+__host__ __device__ constexpr int compose_smooth_smem_floats(int k, int tx, int ty, int nbuf) {
+  // nbuf stage buffers of c's two planes on the tile +- kw//2, the current
+  // one then holding the x pass, and `composed`, two planes on that region.
+  const DemonsGeo g(k, tx, ty, k / 2);
+  return (nbuf + 1) * 2 * g.dx * g.dy;
 }
 
-DemonsPlan correspondence_plan(int k) { return demons_plan(k, correspondence_smem_floats); }
+// B12's register budget, 64 a thread (two 512-thread blocks an SM), and the
+// compose cells whose taps are fetched before any is used (the sweep in
+// PERF.md).
+__host__ __device__ constexpr int compose_blocks(int tx, int ty) {
+  return 65536 / (64 * demons_threads(tx, ty));
+}
+constexpr int kComposeBatch = 2;
+
+DemonsPlan correspondence_plan(int k) {
+  return demons_plan(k, correspondence_smem_floats, kStagedPlans);
+}
+DemonsPlan compose_smooth_plan(int k) {
+  return demons_plan(k, compose_smooth_smem_floats, kComposePlans);
+}
 
 // One tile of B11 or K6, its inputs staged in su and sr.
 template <int K, int TX, int TY, bool kInterior, bool kStrip>
@@ -147,42 +171,57 @@ correspondence_kernel(const float* __restrict__ iaux, const float* __restrict__ 
   }
 }
 
-template <bool kStrip>
-__global__ void __launch_bounds__(demons_threads(kSmallTile, kSmallTile))
+// One tile of B12 or K7, c staged in sc on the tile +- kw//2: the compose
+// into comp, the x pass back into sc (which the compose has read), and the
+// y pass into the output.
+template <int K, int TX, int TY, typename Offset, bool kInterior, bool kStrip>
+__device__ __forceinline__ void compose_smooth_tile(const float* __restrict__ u,
+                                                    float* __restrict__ out, const Rows& rows,
+                                                    int ny, int halo, int k, const Taps& td,
+                                                    float den_d, float* sc, float* comp, int i0,
+                                                    int j0) {
+  constexpr int kN = demons_threads(TX, TY);
+  const DemonsGeo g(K > 0 ? K : k, TX, TY, (K > 0 ? K : k) / 2);
+  const GlobalCell cell{u, rows, ny};
+  stage_accumulate<kN, kInterior, false, kStrip, kComposeBatch, Offset>(
+      sc, Region{g.dx, g.dy, i0 - g.c, j0 - g.c}, u, cell, rows, ny, halo, comp);
+  __syncthreads();
+  smooth_x<K, kN, kInterior>(comp, g.dx, g.dy, i0, rows.nx, td, k, sc);  // TX x dy
+  __syncthreads();
+  float unused0 = 0.f, unused1 = 0.f;
+  smooth_y_store<K, kN, kInterior>(sc, TX, TY, g.dy, i0, j0, rows, ny, td, k, den_d, out, false,
+                                   cell, unused0, unused1);
+}
+
+// One staging buffer: the SM's other block computes while this one copies.
+template <int K, int TX, int TY, typename Offset, bool kStrip>
+__global__ void __launch_bounds__(demons_threads(TX, TY), compose_blocks(TX, TY))
 compose_smooth_kernel(const float* __restrict__ u, const float* __restrict__ cin,
                       float* __restrict__ out, Rows rows, int ny, int halo, int k,
                       Taps taps_d) {
-  constexpr int kN = demons_threads(kSmallTile, kSmallTile);
+  constexpr int kN = demons_threads(TX, TY);
   extern __shared__ float smem[];
-  const int c = k / 2;
-  const int d = kSmallTile + 2 * c;   // c and composed: origin (i0 - c, j0 - c)
-  float* sa = smem;
-  float* sb = sa + 2 * d * d;
-  const int i0 = rows.row0 + blockIdx.y * kSmallTile, j0 = blockIdx.x * kSmallTile;
-  const size_t n = rows.in_plane(ny);
-  const Region s{d, d, i0 - c, j0 - c};
-
-  for_cells<kN>(d, d, [&](int li, int lj, int l) {
-    const int gi = s.gi0 + li, gj = s.gj0 + lj;
-    float c0 = 0.f, c1 = 0.f;
-    if (rows.loadable(gi - rows.row0) && inside(gj, ny)) {
-      const size_t p = rows.in_row(gi - rows.row0, ny) + gj;
-      c0 = cin[p];
-      c1 = cin[n + p];
+  const int kk = K > 0 ? K : k;
+  const DemonsGeo g(kk, TX, TY, kk / 2);
+  float* sc = smem;
+  float* comp = smem + 2 * g.dx * g.dy;
+  const float den_d = tap_total<K>(taps_d, k) * tap_total<K>(taps_d, k);
+  const int tiles_y = (ny + TY - 1) / TY, tiles = demons_tiles(rows, ny, TX, TY);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int i0 = rows.row0 + (t / tiles_y) * TX, j0 = (t % tiles_y) * TY;
+    stage_region<kN>(cin, 2, rows, ny, Region{g.dx, g.dy, i0 - g.c, j0 - g.c}, sc);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (interior_tile(rows, ny, i0, j0, TX, TY, g.c)) {
+      compose_smooth_tile<K, TX, TY, Offset, true, kStrip>(u, out, rows, ny, halo, k, taps_d,
+                                                           den_d, sc, comp, i0, j0);
+    } else {
+      compose_smooth_tile<K, TX, TY, Offset, false, kStrip>(u, out, rows, ny, halo, k, taps_d,
+                                                            den_d, sc, comp, i0, j0);
     }
-    sa[l] = c0;
-    sa[d * d + l] = c1;
-  });
-  __syncthreads();
-  const GlobalCell cell{u, rows, ny};
-  // Two cells in flight: fewer registers, so that more 256-thread blocks fit.
-  stage_accumulate<kN, false, false, kStrip, 2>(sa, s, u, cell, rows, ny, halo, sb);
-  __syncthreads();
-  smooth_x<0, kN, false>(sb, d, d, i0, rows.nx, taps_d, k, sa);   // kSmallTile x d
-  __syncthreads();
-  float unused0 = 0.f, unused1 = 0.f;
-  smooth_y_store<0, kN, false>(sa, kSmallTile, kSmallTile, d, i0, j0, rows, ny, taps_d, k, 0.f,
-                               out, false, cell, unused0, unused1);
+    __syncthreads();
+  }
 }
 
 template <int K, int TX, int TY, int kNBuf, bool kStrip>
@@ -225,19 +264,48 @@ int dispatch_correspondence(const float* iaux, const float* iref, const float* u
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool kStrip>
+template <int K, int TX, int TY, typename Offset, bool kStrip>
+int launch_compose_kernel(const float* u, const float* c, float* out, const Rows& rows, int ny,
+                          int halo, int k, const Taps& td, cudaStream_t stream) {
+  static GridCache cache;
+  auto* kernel = compose_smooth_kernel<K, TX, TY, Offset, kStrip>;
+  const int smem = compose_smooth_smem_floats(k, TX, TY, 1) * static_cast<int>(sizeof(float));
+  int blocks;
+  const int rc = persistent_grid(kernel, demons_threads(TX, TY), smem,
+                                 demons_tiles(rows, ny, TX, TY), &cache, &blocks);
+  if (rc != 0) return rc;
+  kernel<<<blocks, demons_threads(TX, TY), smem, stream>>>(u, c, out, rows, ny, halo, k, td);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 32-bit tap offsets where twice an input plane stays below 2^31.
+template <int K, int TX, int TY, bool kStrip>
 int launch_compose_smooth(const float* u, const float* c, float* out, const Rows& rows, int ny,
-                          int halo, int k, const float* taps_d, cudaStream_t stream) {
+                          int halo, int k, const Taps& td, cudaStream_t stream) {
+  return 2 * rows.in_plane(ny) < (size_t{1} << 31)
+             ? launch_compose_kernel<K, TX, TY, int, kStrip>(u, c, out, rows, ny, halo, k, td,
+                                                             stream)
+             : launch_compose_kernel<K, TX, TY, size_t, kStrip>(u, c, out, rows, ny, halo, k,
+                                                                td, stream);
+}
+
+// The instantiation of k's plan: kw 5 with its taps known, the others at
+// run time.
+template <bool kStrip>
+int dispatch_compose_smooth(const float* u, const float* c, float* out, const Rows& rows,
+                            int ny, int halo, int k, const float* taps_d, cudaStream_t stream) {
   Taps td;
   if (!make_taps(taps_d, k, &td)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = compose_smooth_smem_floats(k) * static_cast<int>(sizeof(float));
-  const cudaError_t err = cudaFuncSetAttribute(
-      compose_smooth_kernel<kStrip>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((ny + kSmallTile - 1) / kSmallTile, (rows.nxl + kSmallTile - 1) / kSmallTile);
-  compose_smooth_kernel<kStrip><<<grid, demons_threads(kSmallTile, kSmallTile), smem, stream>>>(
-      u, c, out, rows, ny, halo, k, td);
-  return static_cast<int>(cudaGetLastError());
+  const DemonsPlan p = compose_smooth_plan(k);
+  if (p.tx == kTileX && p.ty == kTileY)
+    return k == 5 ? launch_compose_smooth<5, kTileX, kTileY, kStrip>(u, c, out, rows, ny, halo, k,
+                                                                    td, stream)
+                  : launch_compose_smooth<0, kTileX, kTileY, kStrip>(u, c, out, rows, ny, halo, k,
+                                                                    td, stream);
+  if (p.tx == kSmallTile)
+    return launch_compose_smooth<0, kSmallTile, kSmallTile, kStrip>(u, c, out, rows, ny, halo, k,
+                                                                    td, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -251,8 +319,13 @@ extern "C" int of2d_demons_correspondence_smem_bytes(int k) {
   return floats * static_cast<int>(sizeof(float));
 }
 
+// Shared memory of a B12 (and K7) thread block at kernelwidth k: its plan's,
+// or, where no tile fits, the smallest layout's.
 extern "C" int of2d_compose_smooth_smem_bytes(int k) {
-  return static_cast<int>(compose_smooth_smem_floats(k) * sizeof(float));
+  const DemonsPlan p = compose_smooth_plan(k);
+  const int floats = p.tx ? compose_smooth_smem_floats(k, p.tx, p.ty, p.nbuf)
+                          : compose_smooth_smem_floats(k, kSmallTile, kSmallTile, 1);
+  return floats * static_cast<int>(sizeof(float));
 }
 
 // B11: iaux, iref [nx, ny], u [2, nx, ny] -> c [2, nx, ny]; taps_f is a
@@ -270,7 +343,8 @@ extern "C" int of2d_demons_correspondence(const float* iaux, const float* iref,
 extern "C" int of2d_compose_smooth(const float* u, const float* c, float* out, int nx,
                                    int ny, int k, const float* taps_d,
                                    cudaStream_t stream) {
-  return launch_compose_smooth<false>(u, c, out, whole_image(nx), ny, 0, k, taps_d, stream);
+  return dispatch_compose_smooth<false>(u, c, out, whole_image(nx), ny, 0, k, taps_d,
+                                        stream);
 }
 
 // K6, one strip: iaux_pad, iref_pad [nxl + 2 pad, ny], u_pad [2, nxl + 2
@@ -297,5 +371,5 @@ extern "C" int of2d_compose_smooth_strip(const float* u_pad, const float* c_pad,
   const Rows rows{nxl, pad, row0, nx_glob};
   if (halo < 0 || !strip_ok(rows, k / 2 + halo + 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_compose_smooth<true>(u_pad, c_pad, out, rows, ny, halo, k, taps_d, stream);
+  return dispatch_compose_smooth<true>(u_pad, c_pad, out, rows, ny, halo, k, taps_d, stream);
 }

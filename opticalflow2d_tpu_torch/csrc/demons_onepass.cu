@@ -76,7 +76,7 @@ __host__ __device__ constexpr int onepass_smem_floats(int k, int tx, int ty, int
          cmax(2 * g.mx * g.my, cmax(2 * g.dx * g.dy, 2 * tx * g.dy)) + red;
 }
 
-DemonsPlan onepass_plan(int k) { return demons_plan(k, onepass_smem_floats); }
+DemonsPlan onepass_plan(int k) { return demons_plan(k, onepass_smem_floats, kStagedPlans); }
 
 // The buffers of one tile's stages (see onepass_smem_floats).
 struct OnepassBufs {

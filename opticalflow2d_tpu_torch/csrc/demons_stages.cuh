@@ -59,8 +59,12 @@
 namespace {
 
 constexpr int kMaxTaps = 64;
-// B10's and B11's output tile where it fits (the sweep in PERF.md), and the
-// tile every width falls back to.
+// The demons kernels' output tile where it fits, and the tile every width
+// falls back to (the sweeps in PERF.md). B10 and B11 stage their inputs in
+// two buffers (kStagedPlans); B12 stages c in one, two blocks an SM
+// (kComposePlans), and recomputes a halo of 1.13x the tile at kw 5 (68^2 /
+// 64^2, against 1.27x at 32 x 32) while its gathers of u, not its 24 B a
+// pixel, hold it (demons_fused.cu).
 constexpr int kTileX = 64, kTileY = 64, kTileBufs = 2;
 constexpr int kSmallTile = 32;
 constexpr int kMaxSmemBytes = 232448;  // an H100 thread block, opt-in
@@ -397,8 +401,10 @@ __device__ __forceinline__ void smooth_y(const float* in, int rows, int cols_in,
 // into the motion u: u + c (kAddition), or the composition c + u(x + c) in
 // bounds and u out of bounds (compose_ref; on a strip compose_strip_ref).
 // ``ucell`` gives u at the cells of s; kB cells' taps are fetched before
-// any is used.
-template <int kN, bool kInterior, bool kAddition, bool kStrip, int kB, typename UCell>
+// any is used. A tap's offset in its plane is taken as an Offset: int where
+// the caller has checked that twice the input plane is below 2^31.
+template <int kN, bool kInterior, bool kAddition, bool kStrip, int kB, typename Offset = size_t,
+          typename UCell>
 __device__ __forceinline__ void stage_accumulate(const float* cs, Region s,
                                                  const float* __restrict__ u, const UCell& ucell,
                                                  const Rows& r, int ny, int halo, float* comp) {
@@ -422,10 +428,11 @@ __device__ __forceinline__ void stage_accumulate(const float* cs, Region s,
         if (b[q].in_bounds && taps[q]) {
 #pragma unroll
           for (int ch = 0; ch < 2; ++ch) {
-            v[q][4 * ch + 0] = __ldg(u + ch * np + b[q].p00);
-            v[q][4 * ch + 1] = __ldg(u + ch * np + b[q].p10);
-            v[q][4 * ch + 2] = __ldg(u + ch * np + b[q].p01);
-            v[q][4 * ch + 3] = __ldg(u + ch * np + b[q].p11);
+            const float* __restrict__ plane = u + ch * np;
+            v[q][4 * ch + 0] = __ldg(plane + static_cast<Offset>(b[q].p00));
+            v[q][4 * ch + 1] = __ldg(plane + static_cast<Offset>(b[q].p10));
+            v[q][4 * ch + 2] = __ldg(plane + static_cast<Offset>(b[q].p01));
+            v[q][4 * ch + 3] = __ldg(plane + static_cast<Offset>(b[q].p11));
           }
         }
       }
@@ -504,13 +511,17 @@ struct DemonsPlan {
   int tx, ty, nbuf;
 };
 
-// The first of the preferred tile with two buffers, 32 x 32 with two, and
-// 32 x 32 with one whose shared memory (smem_floats(k, tx, ty, nbuf)) fits
-// a thread block; tx = 0 if none does.
-template <typename SmemFloats>
-inline DemonsPlan demons_plan(int k, SmemFloats smem_floats) {
-  const DemonsPlan plans[] = {{kTileX, kTileY, kTileBufs}, {kSmallTile, kSmallTile, 2},
-                              {kSmallTile, kSmallTile, 1}};
+// B10's and B11's plans in order of preference: the preferred tile with two
+// buffers, 32 x 32 with two, 32 x 32 with one. B12's: the preferred tile
+// with one, 32 x 32 with one.
+constexpr DemonsPlan kStagedPlans[] = {
+    {kTileX, kTileY, kTileBufs}, {kSmallTile, kSmallTile, 2}, {kSmallTile, kSmallTile, 1}};
+constexpr DemonsPlan kComposePlans[] = {{kTileX, kTileY, 1}, {kSmallTile, kSmallTile, 1}};
+
+// The first of ``plans`` whose shared memory (smem_floats(k, tx, ty, nbuf))
+// fits a thread block; tx = 0 if none does.
+template <typename SmemFloats, int N>
+inline DemonsPlan demons_plan(int k, SmemFloats smem_floats, const DemonsPlan (&plans)[N]) {
   for (const DemonsPlan& p : plans)
     if (smem_floats(k, p.tx, p.ty, p.nbuf) * static_cast<int>(sizeof(float)) <= kMaxSmemBytes)
       return p;

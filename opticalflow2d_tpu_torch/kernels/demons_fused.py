@@ -12,8 +12,9 @@ kernelwidth has to fit there (``demons_onepass.tile_fits``, the widest of
 the three demons kernels); ``solvers.demons`` routes wider ones to the op
 chain before any launch. B11 takes a 64 x 64 tile where its shared memory
 holds it with two staging buffers, else 32 x 32 (``correspondence_plan``);
-B12 a 32 x 32 one. The gathers are exact for any displacement: no halo
-bound, no fallback.
+B12 a 64 x 64 one with one staging buffer where it fits, else 32 x 32
+(``compose_smooth_plan``). The gathers are exact for any displacement: no
+halo bound, no fallback.
 
 ``demons_correspondence_strip`` (K6) and ``compose_smooth_strip`` (K7) are
 the same on one strip of the strip-parallel driver (``parallel.spatial``):
@@ -37,11 +38,12 @@ from opticalflow2d_tpu_torch.ops.grid import partial_x_rows, partial_y
 from opticalflow2d_tpu_torch.solvers.base import Derivatives, demons_force, derivatives
 
 # The kernels' tiles and staging (csrc/demons_stages.cuh): B10 and B11 take
-# the first plan (x rows, y columns, staging buffers) whose shared memory
-# fits a thread block; B12 and K7 a SMALL_TILE square.
+# the first of PLANS (x rows, y columns, staging buffers) whose shared memory
+# fits a thread block, B12 the first of COMPOSE_PLANS.
 TILE = (64, 64)
 SMALL_TILE = 32
 PLANS = ((*TILE, 2), (SMALL_TILE, SMALL_TILE, 2), (SMALL_TILE, SMALL_TILE, 1))
+COMPOSE_PLANS = ((*TILE, 1), (SMALL_TILE, SMALL_TILE, 1))
 MAX_TAPS = 64   # the kernels' tap array (kMaxTaps)
 # Shared memory a thread block may use on the H100 (sm_90, opt-in), the
 # limit the plans are chosen by; the wrappers check the card's own.
@@ -72,19 +74,19 @@ def correspondence_smem_floats(kernelwidth: int, tx: int, ty: int, nbuf: int) ->
     return 2 * stage + max(ex * ey, 2 * tx * my) + 2 * mx * my
 
 
-def plan(kernelwidth: int, smem_floats):
-    """The first of ``PLANS`` whose ``smem_floats`` fits a thread block, or
+def plan(kernelwidth: int, smem_floats, plans=PLANS):
+    """The first of ``plans`` whose ``smem_floats`` fits a thread block, or
     None (``demons_plan``)."""
-    for p in PLANS:
+    for p in plans:
         if 4 * smem_floats(kernelwidth, *p) <= MAX_SMEM_BYTES:
             return p
     return None
 
 
-def plan_smem_bytes(kernelwidth: int, smem_floats) -> int:
+def plan_smem_bytes(kernelwidth: int, smem_floats, plans=PLANS) -> int:
     """Shared memory of a thread block on the kernelwidth's plan, or, where
     none fits, of the smallest layout (more than a block has)."""
-    p = plan(kernelwidth, smem_floats) or PLANS[-1]
+    p = plan(kernelwidth, smem_floats, plans) or plans[-1]
     return 4 * smem_floats(kernelwidth, *p)
 
 
@@ -98,10 +100,23 @@ def correspondence_smem_bytes(kernelwidth: int) -> int:
     return plan_smem_bytes(kernelwidth, correspondence_smem_floats)
 
 
+def compose_smooth_smem_floats(kernelwidth: int, tx: int, ty: int, nbuf: int) -> int:
+    """Floats of shared memory of one B12 thread block on plan ``(tx, ty,
+    nbuf)`` (``demons_fused.cu``): ``nbuf`` staging buffers of c's two planes
+    on the tile extended by ``kernelwidth // 2``, the current one then
+    holding the x pass, and the composed field on the same region."""
+    *_, dx, dy = regions(kernelwidth, tx, ty, kernelwidth // 2)
+    return (nbuf + 1) * 2 * dx * dy
+
+
+def compose_smooth_plan(kernelwidth: int):
+    """B12's and K7's ``(tx, ty, nbuf)`` at this kernelwidth, or None."""
+    return plan(kernelwidth, compose_smooth_smem_floats, COMPOSE_PLANS)
+
+
 def compose_smooth_smem_bytes(kernelwidth: int) -> int:
     """Shared memory of one B12 thread block (``demons_fused.cu``)."""
-    d = SMALL_TILE + 2 * (kernelwidth // 2)
-    return 4 * 4 * d * d
+    return plan_smem_bytes(kernelwidth, compose_smooth_smem_floats, COMPOSE_PLANS)
 
 
 def demons_correspondence_ref(iaux: torch.Tensor, iref: torch.Tensor, u: torch.Tensor,

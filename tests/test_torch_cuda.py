@@ -143,11 +143,13 @@ def _demons_inputs(nx, ny, dev, scale):
 
 
 # kw 5 (taps known at compile time, 64 x 64 tiles), 3 and 7 (64 x 64 at run
-# time), 11 (32 x 32, two staging buffers) and 43 (32 x 32, one); 4 x 4 and
-# 33 x 1000 have border tiles only.
+# time), 11 (B10: 32 x 32 with two staging buffers; B11, B12: 64 x 64) and 43
+# (B10: 32 x 32 with one; B11: two; B12: 64 x 64); a +-30 px field at kw 5,
+# whose compose taps lie past the tile's staged region on interior tiles;
+# 4 x 4 and 33 x 1000 have border tiles only.
 DEMONS_CASES = [((256, 256), 5, 1.5), ((100, 77), 11, 30.0), ((256, 256), 3, 1.5),
                 ((256, 256), 7, 30.0), ((100, 77), 43, 1.5), ((4, 4), 5, 1.5),
-                ((33, 1000), 7, 30.0)]
+                ((33, 1000), 7, 30.0), ((256, 256), 5, 30.0)]
 
 
 @pytest.mark.parametrize("shape,kw,scale", DEMONS_CASES)
@@ -171,11 +173,25 @@ def test_demons_correspondence_and_compose_smooth_match_plain(cuda, shape, kw, s
     c = (c_ref * scale).contiguous()
     assert _max_abs(demons_fused.compose_smooth(u, c, 2.0, kw),
                     demons_fused.compose_smooth_ref(u, c, 2.0, kw)) <= FIELD_TOL
+    c = u.flip(2).contiguous()  # the field of +-scale px itself
+    assert _max_abs(demons_fused.compose_smooth(u, c, 2.0, kw),
+                    demons_fused.compose_smooth_ref(u, c, 2.0, kw)) <= FIELD_TOL
+
+
+@pytest.mark.parametrize("shape,kw,scale", [((256, 256), 57, 1.5), ((256, 256), 59, 30.0),
+                                            ((100, 77), 63, 1.5)])
+def test_compose_smooth_matches_plain_on_its_widest_plans(cuda, shape, kw, scale):
+    """B12's widest 64 x 64 width (57) and the 32 x 32 plan past it, where
+    no B10 tile fits."""
+    _, _, u = _demons_inputs(*shape, cuda, scale)
+    c = u.flip(2).contiguous()
+    assert _max_abs(demons_fused.compose_smooth(u, c, 2.0, kw),
+                    demons_fused.compose_smooth_ref(u, c, 2.0, kw)) <= FIELD_TOL
 
 
 def test_demons_smem_sizes_match_the_kernels(cuda):
     lib = _build.load()
-    for kw in (1, 3, 5, 7, 11, 23, 25, 43, 45):
+    for kw in range(1, 64, 2):
         assert lib.of2d_demons_onepass_smem_bytes(kw) == demons_onepass.onepass_smem_bytes(kw)
         assert lib.of2d_demons_correspondence_smem_bytes(kw) == \
             demons_fused.correspondence_smem_bytes(kw)
@@ -508,6 +524,23 @@ def test_demons_strip_kernels_match_plain_and_dense(cuda, shape, kw, halo, scale
             assert _max_abs(got[s], want) <= FIELD_TOL
         if inside:
             assert torch.equal(torch.cat(got, dim=1), dense())
+
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+def test_compose_smooth_strip_on_32_tiles_matches_plain_and_dense(cuda, shape):
+    """K7 at kw 59 (32 x 32 tiles) on 4 strips against its plain version
+    and, inside the contract, B12's rows bit for bit."""
+    kw, halo, nx, nxl = 59, 2, shape[0], shape[0] // 4
+    _, _, u = _demons_inputs(*shape, cuda, 0.9)
+    c = (torch.tanh(u.flip(1)) * 0.9).contiguous()
+    pad = demons_fused.compose_smooth_strip_pad(halo, kw)
+    up, cp = _strip_inputs(cuda, shape, u, c, pad=pad)
+    got = [demons_fused.compose_smooth_strip(up[s], cp[s], s * nxl, nx, 1.5, kw, halo)
+           for s in range(4)]
+    for s in range(4):
+        want = demons_fused.compose_smooth_strip_ref(up[s], cp[s], s * nxl, nx, 1.5, kw, halo)
+        assert _max_abs(got[s], want) <= FIELD_TOL
+    assert torch.equal(torch.cat(got, dim=1), demons_fused.compose_smooth(u, c, 1.5, kw))
 
 
 def test_demons_strip_kernels_refuse_a_pad_below_the_reach(cuda):

@@ -26,20 +26,25 @@ def test_every_layout_fits_wherever_tile_fits():
         assert tonepass.onepass_smem_bytes(kw) > tfused.MAX_SMEM_BYTES
 
 
-@pytest.mark.parametrize("kernel", ["onepass", "correspondence"])
+@pytest.mark.parametrize("kernel", ["onepass", "correspondence", "compose"])
 def test_each_plan_is_the_first_that_fits(kernel):
     """A kernelwidth takes the 64 x 64 tile with two staging buffers where
-    it fits, else 32 x 32 with two, else with one."""
+    it fits, else 32 x 32 with two, else with one; B12 the 64 x 64 tile with
+    one buffer, else 32 x 32 with one."""
     floats = {"onepass": tonepass.onepass_smem_floats,
-              "correspondence": tfused.correspondence_smem_floats}[kernel]
-    plan = {"onepass": tonepass.onepass_plan, "correspondence": tfused.correspondence_plan}[kernel]
+              "correspondence": tfused.correspondence_smem_floats,
+              "compose": tfused.compose_smooth_smem_floats}[kernel]
+    plan = {"onepass": tonepass.onepass_plan, "correspondence": tfused.correspondence_plan,
+            "compose": tfused.compose_smooth_plan}[kernel]
+    plans = tfused.COMPOSE_PLANS if kernel == "compose" else tfused.PLANS
     assert tfused.PLANS == ((64, 64, 2), (32, 32, 2), (32, 32, 1))
+    assert tfused.COMPOSE_PLANS == ((64, 64, 1), (32, 32, 1))
     for kw in range(1, WIDEST + 1):
         p = plan(kw)
-        earlier = tfused.PLANS[:tfused.PLANS.index(p)]
+        earlier = plans[:plans.index(p)]
         assert 4 * floats(kw, *p) <= tfused.MAX_SMEM_BYTES
         assert all(4 * floats(kw, *q) > tfused.MAX_SMEM_BYTES for q in earlier), (kw, p)
-    assert plan(5) == (64, 64, 2)
+    assert plan(5) == plans[0]
 
 
 def test_onepass_layout_at_the_main_width():
@@ -50,6 +55,19 @@ def test_onepass_layout_at_the_main_width():
                                                   + 2 * 72 * 72 + 2 * 16)
     assert tfused.correspondence_smem_bytes(5) == 4 * (2 * (2 * 70 * 70 + 68 * 68) + 2 * 64 * 68
                                                        + 2 * 68 * 68)
+
+
+def test_compose_smooth_layout_at_the_main_width():
+    """B12 at kw 5 on 64 x 64 with one buffer: c's two planes on the tile
+    +- 2 (68^2) and the composed field (2 x 68^2); two such blocks fit an
+    SM's 228 KiB with their 1 KiB reservations. 64 x 64 holds to kw 57;
+    wider widths a Taps holds (to 63) take 32 x 32."""
+    assert tfused.compose_smooth_smem_bytes(5) == 4 * 2 * 2 * 68 * 68 == 73984
+    assert 2 * (73984 + 1024) <= 228 * 1024
+    assert [kw for kw in range(1, 64, 2)
+            if tfused.compose_smooth_plan(kw) == (64, 64, 1)] == list(range(1, 58, 2))
+    assert all(tfused.compose_smooth_plan(kw) == (32, 32, 1) for kw in range(59, 64, 2))
+    assert tfused.compose_smooth_smem_bytes(43) == 4 * 2 * 2 * 106 * 106
 
 
 @pytest.mark.parametrize("nx,ny,kw,tiles", [
