@@ -17,7 +17,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    and with one; the one-pass kernel by composition and by addition) with
    small displacements and with ones that send samples out of bounds, also
    on 4x4 and 33x1000, whose tiles are all border tiles, the elastic block
-   at k = 1, 2, 4 with either stencil, the fluid iteration with either
+   at k = 1, 2, 3, 4 with either stencil, bit for bit, also on 4x4 and
+   33x1000, the fluid iteration with either
    stencil and either maxabs with a nonzero velocity, and the fluid metrics on a field of up to 3 px whose
    Jacobian determinant falls below 0.5. The two-pass fluid kernels with
    either stencil and either maxabs: the sweep-and-max pass, whose vel'
@@ -30,7 +31,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    each strip padded by the strip driver's halo exchange, against their plain
    versions and, concatenated, against the dense kernel's rows: the
    diffusion strip at k = 8 and at a rerun of 3 on the k = 8 pad, the
-   elastic strip at k = 1, 2, 4 with either stencil, the fluid strip with
+   elastic strip at k = 1, 2, 3, 4 with either stencil, bit for bit (also
+   on 4 strips of 1004x777, which start at the odd rows 251 and 753), the
+   fluid strip with
    either stencil and either maxabs, warp and compose inside the
    displacement contract and (plain version only) far outside it; the
    demons strips K5-K7 at halo 5 and kernelwidth 3, 5, 7, 11 and 43, each on its
@@ -93,8 +96,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    gate and B9); and of each strip kernel on one 1024x4096 strip of the
    4096^2 grid (K1-K4 padded with 8 rows, K5-K7 with their exact reach at
    halo 5), its bound counting the halo rows it reads. Then the demons
-   kernels' tiles and each demons kernel's bound under the instruction floor
-   (the float32 rate without fused multiply-adds, which -fmad=false forbids).
+   kernels' tiles, the elastic block's plan at k = 4 with its memory
+   bound, and each demons and elastic kernel's bound under the instruction
+   floor (the float32 rate without fused multiply-adds, which -fmad=false
+   forbids).
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -170,6 +175,10 @@ KERNEL_SHAPES = ((4096, 4096), (2048, 2048), (1000, 777))
 # 43 with one (B11: two); and shapes whose tiles are all border tiles.
 DEMONS_KWS = (3, 5, 7, 11, 43)
 BORDER_SHAPES = ((4, 4), (33, 1000))
+# The elastic block's k: 1-4 compiled in on 64 x 64 tiles; and 4 strips of
+# ELASTIC_ODD_STRIPS (nxl 251) start at the odd rows 251 and 753.
+ELASTIC_KS = (1, 2, 3, 4)
+ELASTIC_ODD_STRIPS = (1004, 777)
 # The fluid_16k path's levels past 4096: 16384^2 runs B3, B5, B8 and B9,
 # 8192^2 B3, B5 and B7. At 16384^2 g's third plane starts 2^31 bytes in.
 HUGE_KERNEL_SHAPES = (N_HUGE, N_HUGE // 2)
@@ -303,9 +312,11 @@ ELASTIC_K = 4
 # A strip kernel does its dense kernel's work on the strip's pixels and
 # also reads the halo rows of its padded inputs (STRIP_PADDED planes, 8 rows
 # a side at the timed settings, the demons strips their exact reach).
-# The demons kernels whose bound phase 6 also states under the instruction floor.
-DEMONS_TIMED = ("demons_onepass", "demons_correspondence", "compose_smooth",
-                "demons_onepass_strip", "demons_correspondence_strip", "compose_smooth_strip")
+# The kernels whose bound phase 6 also states under the instruction floor.
+FLOOR_TIMED = ("demons_onepass", "demons_correspondence", "compose_smooth",
+               "demons_onepass_strip", "demons_correspondence_strip", "compose_smooth_strip",
+               "elastic_block", "elastic_block_strip")
+STRIP_TIMED_PAD = 8  # halo rows a side of the timed strips K1-K4
 STRIP_OF = {"diffusion_block_strip": "diffusion_block", "elastic_block_strip": "elastic_block",
             "fluid_iter_strip": "fluid_iter", "warp2d_strip": "warp2d",
             "compose_strip": "compose", "demons_onepass_strip": "demons_onepass",
@@ -409,9 +420,9 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": seconds, "library": path.name, "ptxas": report})
 
 
-def check(err: dict, name: str, got, want, shape, **info) -> None:
+def check(err: dict, name: str, got, want, shape, exact: bool = False, **info) -> None:
     """Hold a kernel's field (and Logger sums, for a pair) against its
-    plain version's."""
+    plain version's; ``exact``: bit for bit."""
     sums_rel = None
     if isinstance(got, tuple):
         (got, sums), (want, sums_ref) = got, want
@@ -420,7 +431,7 @@ def check(err: dict, name: str, got, want, shape, **info) -> None:
     e = max_abs(got, want)
     emit({"phase": "kernels", "kernel": name, "shape": list(shape), **info,
           "max_abs_err": e, **({} if sums_rel is None else {"sums_rel_err": sums_rel})})
-    require(e <= FIELD_TOL and (sums_rel is None or sums_rel <= SUMS_RTOL),
+    require(e <= (0.0 if exact else FIELD_TOL) and (sums_rel is None or sums_rel <= SUMS_RTOL),
             f"{name} {shape} {info}: err {e}, sums {sums_rel}")
     err[name] = max(err[name], e)
 
@@ -437,6 +448,8 @@ def phase_kernels(dev) -> dict:
     for nx, ny in BORDER_SHAPES:
         iref, imov = (x[:nx, :ny].contiguous() for x in pair_on(dev, "blob", max(nx, ny)))
         check_demons(err, dev, gen, iref, imov)
+        g, small = elastic_inputs(dev, gen, iref, imov)
+        check_elastic(err, g, small)
     for n in HUGE_KERNEL_SHAPES:
         check_shape(err, dev, gen, *tiled_pair(n, dev), every=False)
         torch.cuda.empty_cache()
@@ -445,7 +458,48 @@ def phase_kernels(dev) -> dict:
     for nx, ny in STRIP_SHAPES:
         iref, imov = (x[:nx, :ny].contiguous() for x in pair_on(dev, "blob", max(nx, ny)))
         check_strips(err, dev, gen, iref, imov)
+    nx, ny = ELASTIC_ODD_STRIPS
+    iref, imov = (x[:nx, :ny].contiguous() for x in pair_on(dev, "blob", max(nx, ny)))
+    check_elastic_strips(err, dev, *elastic_inputs(dev, gen, iref, imov))
     return err
+
+
+def elastic_inputs(dev, gen: torch.Generator, iref, imov):
+    """g of the pair and a field of up to 1.5 px from ``gen``."""
+    d = derivatives(iref, imov)
+    u = torch.randn((2, *iref.shape), generator=gen, device=dev) * 2
+    return stack_derivs(d.grad_i, d.it), (torch.tanh(u) * 1.5).contiguous()
+
+
+def check_elastic(err: dict, g, small) -> None:
+    """B6 at each of ELASTIC_KS with either stencil, bit for bit."""
+    for k in ELASTIC_KS:
+        for ref_stencil in (True, False):
+            args = (small, g, *ELASTIC, ref_stencil, k)
+            check(err, "elastic_block", elastic_block(*args), elastic_block_ref(*args),
+                  small.shape[1:], exact=True, k=k, reference_stencil=ref_stencil,
+                  plan=k_el.elastic_plan(k))
+
+
+def check_elastic_strips(err: dict, dev, g, small) -> None:
+    """K2 on SP_STRIPS strips at each of ELASTIC_KS with either stencil, each
+    strip against its plain version and the strips together against B6's
+    rows, bit for bit."""
+    nx = small.shape[1]
+    nxl = nx // SP_STRIPS
+    shape = tuple(small.shape[1:])
+    for k in ELASTIC_KS:
+        sp, gp = strip_inputs(dev, k_el.required_pad(k), small, g)
+        for ref_stencil in (True, False):
+            outs = []
+            for s in range(SP_STRIPS):
+                args = (sp[s], gp[s], s * nxl, nx, *ELASTIC, ref_stencil, k)
+                outs.append(k_el.elastic_block_strip(*args))
+                check(err, "elastic_block_strip", outs[-1], k_el.elastic_block_strip_ref(*args),
+                      shape, exact=True, k=k, reference_stencil=ref_stencil, row0=s * nxl)
+            dense, _ = elastic_block(small, g, *ELASTIC, ref_stencil, k)
+            check_rows("elastic_block_strip", (o[0] for o in outs), dense, shape, exact=True,
+                       k=k, reference_stencil=ref_stencil)
 
 
 def strip_inputs(dev, pad: int, *fields):
@@ -454,14 +508,17 @@ def strip_inputs(dev, pad: int, *fields):
     return [spatial._halo_pad(spatial._split(f, [dev] * SP_STRIPS), pad) for f in fields]
 
 
-def check_rows(name: str, strips, dense: torch.Tensor, shape, **info) -> None:
-    """The strips' outputs, concatenated, against the dense kernel's."""
+def check_rows(name: str, strips, dense: torch.Tensor, shape, exact: bool = False,
+               **info) -> None:
+    """The strips' outputs, concatenated, against the dense kernel's;
+    ``exact``: bit for bit."""
     got = torch.cat(list(strips), dim=-2)
     torch.cuda.synchronize()
     e = max_abs(got, dense)
     emit({"phase": "kernels", "kernel": name, "shape": list(shape), "against": "dense rows",
           **info, "max_abs_err": e, "bit_equal": bool(torch.equal(got, dense))})
-    require(e <= FIELD_TOL, f"{name} {shape} {info}: strips differ from the dense kernel by {e}")
+    require(e <= (0.0 if exact else FIELD_TOL),
+            f"{name} {shape} {info}: strips differ from the dense kernel by {e}")
 
 
 def check_strips(err: dict, dev, gen: torch.Generator, iref, imov) -> None:
@@ -491,19 +548,7 @@ def check_strips(err: dict, dev, gen: torch.Generator, iref, imov) -> None:
         require(e <= SUMS_RTOL, f"diffusion_block_strip {shape}: strips' sums {e}")
     del up, outs, dense
 
-    for k in (1, 2, ELASTIC_K):
-        sp, gp = strip_inputs(dev, k_el.required_pad(k), small, g)
-        for ref_stencil in (True, False):
-            outs = []
-            for s in strips:
-                args = (sp[s], gp[s], s * nxl, nx, *ELASTIC, ref_stencil, k)
-                outs.append(k_el.elastic_block_strip(*args))
-                check(err, "elastic_block_strip", outs[-1], k_el.elastic_block_strip_ref(*args),
-                      shape, k=k, reference_stencil=ref_stencil, row0=s * nxl)
-            dense, _ = elastic_block(small, g, *ELASTIC, ref_stencil, k)
-            check_rows("elastic_block_strip", (o[0] for o in outs), dense, shape, k=k,
-                       reference_stencil=ref_stencil)
-    del outs, dense
+    check_elastic_strips(err, dev, g, small)
 
     vel = (torch.tanh(u.flip(1)) * 0.3).contiguous()
     sp, vp, gp = strip_inputs(dev, k_fl.FLUID_PAD, small, vel, g)
@@ -637,13 +682,9 @@ def check_shape(err: dict, dev, gen: torch.Generator, iref, imov, every: bool) -
 
         check_demons(err, dev, gen, iref, imov, small, disp, u_total)
 
-        # Elastic and fluid: a field of up to 1 px (and, for fluid, a
+        # Elastic and fluid: a field of up to 1.5 px (and, for fluid, a
         # nonzero velocity).
-        for k in (1, 2, ELASTIC_K):
-            for ref_stencil in (True, False):
-                args = (small, g, *ELASTIC, ref_stencil, k)
-                check(err, "elastic_block", elastic_block(*args), elastic_block_ref(*args),
-                      shape, k=k, reference_stencil=ref_stencil)
+        check_elastic(err, g, small)
     del disp, u_total
     vel = (torch.tanh(u.flip(1)) * 0.3).contiguous()
     for ref_stencil in (True, False):
@@ -1199,11 +1240,20 @@ def phase_times(dev) -> dict:
         "demons_correspondence": k_df.correspondence_plan(KW),
         "compose_smooth": k_df.compose_smooth_plan(KW)}, "kernelwidth": KW,
         "plan": "(tile rows, tile columns, staging buffers)"})
-    for name in DEMONS_TIMED:
-        floor = (strip_bound(name, n // SP_STRIPS, n, STRIP_PADS[name], PEAK_F32_NO_FMA_PER_S)
-                 if name in STRIP_OF else bound(name, n * n, PEAK_F32_NO_FMA_PER_S))
+    emit({"phase": "times", "elastic_tiles": {"elastic_block": k_el.elastic_plan(ELASTIC_K)},
+          "k": ELASTIC_K, "plan": "(tile rows, tile columns, threads)",
+          "smem_bytes": k_el.elastic_smem_bytes(ELASTIC_K),
+          "memory_bound": {name: times[name]["bound_ms"]
+                           for name in ("elastic_block", "elastic_block_strip")}})
+    for name in FLOOR_TIMED:
+        pad = STRIP_PADS.get(name, STRIP_TIMED_PAD)
+        strip = name in STRIP_OF
+        floor = (strip_bound(name, n // SP_STRIPS, n, pad, PEAK_F32_NO_FMA_PER_S)
+                 if strip else bound(name, n * n, PEAK_F32_NO_FMA_PER_S))
+        npix = (n // SP_STRIPS if strip else n) * n
+        ops_ms = OPS[STRIP_OF.get(name, name)] * npix / PEAK_F32_NO_FMA_PER_S * 1e3
         emit({"phase": "times", "kernel": name, "instruction_floor": True, **floor,
-              "ms": times[name]["ms"]})
+              "ops_ms": ops_ms, "ms": times[name]["ms"]})
     return times
 
 
@@ -1224,7 +1274,7 @@ def strip_times(dev, imov, g, u, v) -> dict:
     cut into SP_STRIPS strips (1024 x 4096, padded with 8 halo rows a
     side; the demons strips with their exact reach), against its plain
     version."""
-    n, s, pad = N_MAIN, 1, 8
+    n, s, pad = N_MAIN, 1, STRIP_TIMED_PAD
     nxl = n // SP_STRIPS
     row0 = s * nxl
     up, vp, gp, ip = (x[s] for x in strip_inputs(dev, pad, u, v, g, imov))

@@ -10,29 +10,26 @@
 //   elastic_block_pallas (B6, :206) and elastic_block_strip (K2, :281).
 // Bound on this card: device-memory bandwidth. A pass reads u (2 planes)
 //   and g = (gx, gy, It) (3 planes) and writes u: 28 B per pixel for k
-//   iterations of about 50 flops each.
-// Design: each thread block owns a kSorTile x kSorTile output tile and
-//   loads it with a halo of 2k cells on every side into shared memory:
-//   u twice (ping-pong) and g. Each iteration's dependence cone grows two
-//   cells, one per half-sweep (the force is pointwise), so iteration s
-//   sweeps the extended tile shrunk by 2s+1 cells (red) and 2s+2 cells
-//   (black) per side, and the interior equals k single steps. The red
-//   half reads one buffer and writes the other, the black half writes it
-//   back (sor_stages.cuh): no half-sweep updates in place. The force at a
-//   cell is computed from the half's input: the black cells are untouched
-//   by the red half, so both halves see the iteration's starting field.
+//   iterations of about 50 flops each (0.100 ms at 4096^2, k = 4, without
+//   FMAs, under the 0.140 ms of the bytes).
+// Design (elastic_stages.cuh; the sweep in PERF.md): one block per output
+//   tile of the first plan whose shared memory fits at k (kElasticPlans:
+//   48 x 48 on 512 threads, else 32 x 32 on 256), staged with a halo of 2k
+//   by cp.async; lanes compacted by colour, each thread sliding a register
+//   window down a run of its column's cells of the half's colour; the two
+//   u buffers ping-pong without a copy; k compiled in for k <= 4, and tiles
+//   inside the image take a route without border tests.
 // Strips (rows.cuh): tile rows are read from the padded strip and masked
-//   and coloured by global row, (row0 + li + gj) % 2; the cone of 2k rows
-//   stays inside the pad. The strips of an image, concatenated, equal B6
-//   on the image bit for bit; a strip's sums are its own.
+//   and coloured by global row; the cone of 2k rows stays inside the pad.
+//   The strips of an image, concatenated, equal B6 on the image bit for
+//   bit; a strip's sums are its own.
 // Border: updates only at global interior cells (1 <= i <= nx-2,
 //   1 <= j <= ny-2). Cells outside the image load as 0, keep their value
 //   and are read by no image cell. Ragged tiles need nothing else.
-// Sums: for each iteration, |u_t - u_{t-1}| and |u_{t-1}| over the tile's
-//   image cells, reduced in a fixed order (thread, warp shuffle tree,
-//   warps in order) into [nblocks, k, 2] partials; a second kernel adds
-//   the blocks in order (partials.cuh). No float atomics, so the Logger
-//   error, and with it the iteration count, repeats exactly.
+// Sums: [nblocks, k, 2] partials, one row per tile, reduced in a fixed
+//   order; a second kernel adds the blocks in order (partials.cuh). No
+//   float atomics, so the Logger error, and with it the iteration count,
+//   repeats exactly.
 // Numerics: the plain version's order of operations, with -fmad=false, so
 //   the interior rounds like k calls of solvers/elastic.py::elastic_step.
 
@@ -40,99 +37,50 @@
 
 #include <cstddef>
 
-#include "partials.cuh"
-#include "sor_stages.cuh"
+#include "elastic_stages.cuh"
 
 namespace {
 
-// Shared floats: two buffers of u (2 planes each), g (3 planes), and the
-// per-iteration warp partials [k][kSorThreadsX][2].
-__host__ __device__ constexpr int elastic_smem_floats(int k) {
-  return 7 * (kSorTile + 4 * k) * (kSorTile + 4 * k) + k * kSorThreadsX * 2;
-}
-
-template <bool kRefStencil>
-__global__ void __launch_bounds__(kSorThreads)
-elastic_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
-                     float* __restrict__ out, float* __restrict__ partials, Rows r, int ny,
-                     int k, SorScalars s) {
-  extern __shared__ float smem[];
-  const int h = 2 * k;              // halo
-  const int e = kSorTile + 2 * h;   // extended tile extent
-  const int ee = e * e;
-  float* cur = smem;
-  float* nxt = cur + 2 * ee;
-  float* gs = nxt + 2 * ee;
-  float* red = gs + 3 * ee;
-  const int li0 = blockIdx.y * kSorTile - h;  // local index of extended row 0
-  const int gi0 = r.row0 + li0;                // and its global index
-  const int gj0 = blockIdx.x * kSorTile - h;
-  const int gi_end = r.row0 + r.nxl;
-
-  load_tile(u, cur, 2, r, ny, li0, gj0, e);
-  load_tile(g, gs, 3, r, ny, li0, gj0, e);
-  __syncthreads();
-
-  const int ty = threadIdx.x, tx = threadIdx.y;  // lane along y, warp along x
-  for (int t = 0; t < k; ++t) {
-    float dsum = 0.f, psum = 0.f;
-    sor_half_sweep<kRefStencil, false>(cur, nxt, cur, gs, e, 2 * t + 1, e - 2 * t - 1, gi0,
-                                       gj0, r.nx, ny, 0, s, 0, 0, gi_end, dsum, psum);
-    __syncthreads();
-    sor_half_sweep<kRefStencil, true>(nxt, cur, nxt, gs, e, 2 * t + 2, e - 2 * t - 2, gi0,
-                                      gj0, r.nx, ny, 1, s, h, h + kSorTile, gi_end, dsum, psum);
-    dsum = warp_sum(dsum);
-    psum = warp_sum(psum);
-    if (ty == 0) {
-      red[(t * kSorThreadsX + tx) * 2] = dsum;
-      red[(t * kSorThreadsX + tx) * 2 + 1] = psum;
-    }
-    __syncthreads();  // cur is complete before the next red half reads it
-  }
-
-  const size_t n = r.out_plane(ny);
-  for (int li = h + tx; li < h + kSorTile; li += kSorThreadsX) {
-    const int lr = li0 + li;
-    if (lr >= r.nxl) break;
-    for (int lj = h + ty; lj < h + kSorTile; lj += kSorThreadsY) {
-      const int gj = gj0 + lj;
-      if (gj >= ny) break;
-      const size_t p = static_cast<size_t>(lr) * ny + gj;
-      const int l = li * e + lj;
-      out[p] = cur[l];
-      out[n + p] = cur[ee + l];
-    }
-  }
-
-  const int tid = tx * kSorThreadsY + ty;
-  if (tid < 2 * k) {
-    const int t = tid >> 1, c = tid & 1;
-    float acc = 0.f;
-    for (int w = 0; w < kSorThreadsX; ++w) acc += red[(t * kSorThreadsX + w) * 2 + c];
-    const size_t bid = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-    partials[bid * 2 * k + tid] = acc;
-  }
-}
-
-template <bool kRefStencil>
-int launch_elastic_block(const float* u, const float* g, float* out, float* partials,
-                         float* sums, Rows r, int ny, int k, SorScalars s,
-                         cudaStream_t stream) {
-  const int smem = static_cast<int>(elastic_smem_floats(k) * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(elastic_block_kernel<kRefStencil>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// B6 or K2 on plan P with k compiled in (K > 0) or at run time (K = 0),
+// then the sums of the partials.
+template <int K, int P, bool kRef>
+int launch_plan(const float* u, const float* g, float* out, float* partials, float* sums,
+                Rows r, int ny, int k, SorScalars s, cudaStream_t stream) {
+  constexpr ElasticPlan p = kElasticPlans[P];
+  auto* kernel = elastic_block_kernel<K, p.tx, p.ty, p.threads, p.min_blocks, kRef>;
+  const int smem = elastic_smem_bytes(k, p);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(sor_tiles(ny), sor_tiles(r.nxl));
-  elastic_block_kernel<kRefStencil><<<grid, dim3(kSorThreadsY, kSorThreadsX), smem, stream>>>(
-      u, g, out, partials, r, ny, k, s);
+  const dim3 grid((ny + p.ty - 1) / p.ty, (r.nxl + p.tx - 1) / p.tx);
+  kernel<<<grid, p.threads, smem, stream>>>(u, g, out, partials, r, ny, k, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_sum_partials(partials, sums, static_cast<int>(grid.x * grid.y), 2 * k, stream);
 }
 
+template <bool kRef>
+int launch_elastic_block(const float* u, const float* g, float* out, float* partials,
+                         float* sums, Rows r, int ny, int k, SorScalars s, cudaStream_t stream) {
+  switch (elastic_plan_index(k)) {
+    case 0:
+      switch (k) {
+        case 1: return launch_plan<1, 0, kRef>(u, g, out, partials, sums, r, ny, k, s, stream);
+        case 2: return launch_plan<2, 0, kRef>(u, g, out, partials, sums, r, ny, k, s, stream);
+        case 3: return launch_plan<3, 0, kRef>(u, g, out, partials, sums, r, ny, k, s, stream);
+        case 4: return launch_plan<4, 0, kRef>(u, g, out, partials, sums, r, ny, k, s, stream);
+        default: return launch_plan<0, 0, kRef>(u, g, out, partials, sums, r, ny, k, s, stream);
+      }
+    case 1: return launch_plan<0, 1, kRef>(u, g, out, partials, sums, r, ny, k, s, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);  // no plan fits
+  }
+}
+static_assert(kElasticPlanCount == 2, "launch_elastic_block dispatches every plan");
+
 int dispatch_elastic_block(const float* u, const float* g, float* out, float* partials,
                            float* sums, Rows r, int ny, int k, SorScalars s,
                            int reference_stencil, cudaStream_t stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   return reference_stencil
              ? launch_elastic_block<true>(u, g, out, partials, sums, r, ny, k, s, stream)
              : launch_elastic_block<false>(u, g, out, partials, sums, r, ny, k, s, stream);
@@ -140,15 +88,22 @@ int dispatch_elastic_block(const float* u, const float* g, float* out, float* pa
 
 }  // namespace
 
+// Shared memory of one block on k's plan, or, where none fits, of the last
+// plan (more than a block has).
 extern "C" int of2d_elastic_block_smem_bytes(int k) {
-  return static_cast<int>(elastic_smem_floats(k) * sizeof(float));
+  const int i = elastic_plan_index(k);
+  return elastic_smem_bytes(k, kElasticPlans[i < 0 ? kElasticPlanCount - 1 : i]);
 }
 
-// Thread blocks of a launch over nx (or a strip's nxl) rows.
-extern "C" int of2d_sor_nblocks(int nx, int ny) { return sor_tiles(nx) * sor_tiles(ny); }
+// Thread blocks (rows of the partials) of a launch over nx (or a strip's
+// nxl) rows at k; 0 where no plan fits.
+extern "C" int of2d_elastic_nblocks(int nx, int ny, int k) {
+  const int i = elastic_plan_index(k);
+  return i < 0 ? 0 : elastic_tiles(nx, ny, kElasticPlans[i].tx, kElasticPlans[i].ty);
+}
 
 // B6: u [2, nx, ny], g [3, nx, ny] -> out [2, nx, ny], sums [k, 2];
-// partials [nblocks, k, 2] is scratch.
+// partials [of2d_elastic_nblocks(nx, ny, k), k, 2] is scratch.
 extern "C" int of2d_elastic_block(const float* u, const float* g, float* out, float* partials,
                                   float* sums, int nx, int ny, int k, float mu, float mpl,
                                   float omw, float inv_diag, int reference_stencil,
@@ -159,8 +114,8 @@ extern "C" int of2d_elastic_block(const float* u, const float* g, float* out, fl
 
 // K2: u_pad [2, nxl + 2 pad, ny], g_pad [3, nxl + 2 pad, ny] of the strip
 // whose first owned row is global row row0 of nx_glob -> out [2, nxl, ny]
-// and the strip's sums [k, 2]; partials [nblocks(nxl, ny), k, 2] is
-// scratch. Needs pad >= 2k.
+// and the strip's sums [k, 2]; partials [of2d_elastic_nblocks(nxl, ny, k),
+// k, 2] is scratch. Needs pad >= 2k.
 extern "C" int of2d_elastic_block_strip(const float* u_pad, const float* g_pad, float* out,
                                         float* partials, float* sums, int nxl, int ny, int k,
                                         int pad, int row0, int nx_glob, float mu, float mpl,

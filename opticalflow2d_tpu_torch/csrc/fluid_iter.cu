@@ -80,12 +80,9 @@ fluid_iter_kernel(const float* __restrict__ u, const float* __restrict__ vel,
   load_tile(g, gs, 3, rows, ny, li0, gj0, kExt);
   __syncthreads();
 
-  float unused = 0.f;
-  sor_half_sweep<kRefStencil, false>(cur, nxt, us, gs, kExt, 1, kExt - 1, gi0, gj0, nx, ny, 0,
-                                     s, 0, 0, 0, unused, unused);
+  sor_half_sweep<kRefStencil>(cur, nxt, us, gs, kExt, 1, kExt - 1, gi0, gj0, nx, ny, 0, s);
   __syncthreads();
-  sor_half_sweep<kRefStencil, false>(nxt, cur, us, gs, kExt, 2, kExt - 2, gi0, gj0, nx, ny, 1,
-                                     s, 0, 0, 0, unused, unused);
+  sor_half_sweep<kRefStencil>(nxt, cur, us, gs, kExt, 2, kExt - 2, gi0, gj0, nx, ny, 1, s);
   __syncthreads();
 
   const size_t n = rows.out_plane(ny);
@@ -191,6 +188,9 @@ int dispatch(const float* u, const float* vel, const float* g, float* vel_out, f
 extern "C" int of2d_fluid_iter_smem_bytes() {
   return static_cast<int>(kFluidSmemFloats * sizeof(float));
 }
+
+// Thread blocks of a launch over nx (or a strip's nxl) rows.
+extern "C" int of2d_sor_nblocks(int nx, int ny) { return sor_tiles(nx) * sor_tiles(ny); }
 
 // B7: u, vel [2, nx, ny], g [3, nx, ny] -> vel_out, r_out [2, nx, ny],
 // maxsq [1]; partials [nblocks] (of2d_sor_nblocks) is scratch.

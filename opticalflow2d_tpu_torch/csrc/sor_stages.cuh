@@ -1,8 +1,8 @@
 // The red-black SOR half-sweep of the Navier-Lame system on a 2D tile in
-// shared memory, shared by elastic_block.cu (B6: k elastic iterations) and
-// fluid_iter.cu (B7: one sweep on the velocity), as sor_candidate_tile
-// (opticalflow2d_tpu/pallas_kernels/elastic_block.py:32) serves both TPU
-// kernels.
+// shared memory, run by fluid_iter.cu (B7: one sweep on the velocity); its
+// candidate (sor_candidate) and scalars also serve elastic_stages.cuh (B6:
+// k elastic iterations), as sor_candidate_tile (opticalflow2d_tpu/
+// pallas_kernels/elastic_block.py:32) serves both TPU kernels.
 //
 // A buffer is two planes (x, y components) of e x e floats, row-major, at
 // a plane stride of e * e; its cell (0, 0) lies at global (gi0, gj0). The
@@ -63,22 +63,15 @@ __device__ __forceinline__ float sor_candidate(const float* x, int ee, int e, in
 // is the L-SSD force grad(I) * (It + f0*gx + f1*gy) at the cell
 // (solvers/base.py::lssd_force), from the field f (two planes) and
 // gs = (gx, gy, It) (three planes). Reads x, writes out.
-//
-// kSums: also add, per thread, |out - prev| and |prev| over the cells of
-// [t_lo, t_hi)^2 inside the image and above global row gi_end (the end of
-// the rows the launch owns), where prev is what ``out`` held before this
-// half-sweep (the Logger's previous field).
-template <bool kRefStencil, bool kSums>
+template <bool kRefStencil>
 __device__ __forceinline__ void sor_half_sweep(const float* x, float* out, const float* f,
                                                const float* gs, int e, int lo, int hi,
                                                int gi0, int gj0, int nx, int ny, int parity,
-                                               const SorScalars& s, int t_lo, int t_hi,
-                                               int gi_end, float& dsum, float& psum) {
+                                               const SorScalars& s) {
   const int ee = e * e;
   for (int li = lo + threadIdx.y; li < hi; li += kSorThreadsX) {
     const int gi = gi0 + li;
     const bool row_interior = gi >= 1 && gi <= nx - 2;
-    const bool row_sums = kSums && gi >= 0 && gi < gi_end && li >= t_lo && li < t_hi;
     for (int lj = lo + threadIdx.x; lj < hi; lj += kSorThreadsY) {
       const int gj = gj0 + lj;
       const int l = li * e + lj;
@@ -88,12 +81,6 @@ __device__ __forceinline__ void sor_half_sweep(const float* x, float* out, const
         const float inner = (gs[2 * ee + l] + f[l] * gx) + f[ee + l] * gy;
         n0 = sor_candidate<kRefStencil>(x, ee, e, l, 0, gx * inner, s);
         n1 = sor_candidate<kRefStencil>(x, ee, e, l, 1, gy * inner, s);
-      }
-      if (kSums && row_sums && gj >= 0 && gj < ny && lj >= t_lo && lj < t_hi) {
-        const float p0 = out[l], p1 = out[ee + l];
-        const float d0 = n0 - p0, d1 = n1 - p1;
-        dsum += sqrtf(d0 * d0 + d1 * d1);
-        psum += sqrtf(p0 * p0 + p1 * p1);
       }
       out[l] = n0;
       out[ee + l] = n1;

@@ -65,6 +65,7 @@ _SIGNATURES = {
     "of2d_fluid_metrics": ((_P, _P, _P, _P, _I, _I, _P), _I),
     "of2d_sor_nblocks": ((_I, _I), _I),
     "of2d_elastic_block_smem_bytes": ((_I,), _I),
+    "of2d_elastic_nblocks": ((_I, _I, _I), _I),
     "of2d_elastic_block": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P), _I),
     "of2d_elastic_block_strip": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                                   _I, _P), _I),

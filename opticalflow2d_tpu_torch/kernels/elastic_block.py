@@ -1,13 +1,16 @@
 """Temporal-blocked elastic registration: k elastic iterations (the L-SSD
 force, then a red and a black SOR half-sweep) per pass over device memory,
 with the reference Logger's per-iteration sums (CUDA
-``csrc/elastic_block.cu``, the counterpart of
-``opticalflow2d_tpu/pallas_kernels/elastic_block.py``).
+``csrc/elastic_block.cu`` and ``csrc/elastic_stages.cuh``, the counterpart
+of ``opticalflow2d_tpu/pallas_kernels/elastic_block.py``).
 
-A thread block holds its 32x32 tile with a halo of ``2k`` cells in shared
-memory, 7 planes of ``(32 + 4k)^2`` floats: 64.5 KB at k = 4; the wrapper
-checks the card's limit before the launch. Relative error of iteration t
-is ``sums[t, 0] / sums[t, 1]``, as for the diffusion block.
+A thread block holds one output tile with a halo of ``2k`` cells in shared
+memory, 7 planes (u twice, g) of the extended tile: the first of
+``ELASTIC_PLANS`` whose block fits (48 x 48, 115.2 KB at k = 4, two blocks
+an SM; else 32 x 32), the wrapper checking the card's limit before the
+launch. The
+Logger partials have one row per tile (``elastic_tiles``). Relative error
+of iteration t is ``sums[t, 0] / sums[t, 1]``, as for the diffusion block.
 ``elastic_block_strip`` runs one strip of the strip-parallel driver
 (``parallel.spatial``), pre-padded with its neighbours' halo rows; its
 colours are those of the global rows.
@@ -21,9 +24,44 @@ import torch
 
 from opticalflow2d_tpu_torch import kernels
 from opticalflow2d_tpu_torch.kernels import _build
+from opticalflow2d_tpu_torch.kernels.demons_fused import MAX_SMEM_BYTES
 from opticalflow2d_tpu_torch.kernels.diffusion_block import _magnitude_sum
 from opticalflow2d_tpu_torch.solvers.base import Derivatives
 from opticalflow2d_tpu_torch.solvers.elastic import elastic_step, sor_scalars
+
+
+# The kernel's plans (csrc/elastic_stages.cuh kElasticPlans): output tile
+# rows, columns and threads of a block, in order of preference; a launch
+# takes the first whose shared memory fits a thread block at its k.
+ELASTIC_PLANS = ((48, 48, 512), (32, 32, 256))
+
+
+def elastic_smem_floats(k: int, tx: int, ty: int, threads: int) -> int:
+    """Floats of shared memory of one block on plan ``(tx, ty, threads)``:
+    u twice and g (7 planes) on the tile extended by ``2k`` a side, and the
+    per-iteration warp partials."""
+    return 7 * (tx + 4 * k) * (ty + 4 * k) + k * (threads // 32) * 2
+
+
+def elastic_plan(k: int):
+    """The plan a launch at ``k`` takes, or None where no block fits."""
+    for p in ELASTIC_PLANS:
+        if 4 * elastic_smem_floats(k, *p) <= MAX_SMEM_BYTES:
+            return p
+    return None
+
+
+def elastic_smem_bytes(k: int) -> int:
+    """Shared memory of one block at ``k``, or, where no plan fits, of the
+    last plan (more than a block has)."""
+    return 4 * elastic_smem_floats(k, *(elastic_plan(k) or ELASTIC_PLANS[-1]))
+
+
+def elastic_tiles(nx: int, ny: int, k: int) -> int:
+    """Thread blocks, and rows of the Logger partials, of a launch over
+    ``nx`` (a strip's ``nxl``) rows at ``k``."""
+    tx, ty, _ = elastic_plan(k)
+    return -(-nx // tx) * -(-ny // ty)
 
 
 def elastic_block_ref(u: torch.Tensor, g: torch.Tensor, mu: float, lam: float, omega: float,
@@ -61,9 +99,9 @@ def elastic_block(u: torch.Tensor, g: torch.Tensor, mu: float, lam: float, omega
     lib = _build.load()
     _build.check_smem(lib.of2d_elastic_block_smem_bytes(k), u.device,
                       f"an elastic block with k={k} (use a smaller block_k)")
-    nblocks = lib.of2d_sor_nblocks(nx, ny)
     out = torch.empty_like(u)
-    partials = torch.empty((nblocks, k, 2), dtype=u.dtype, device=u.device)
+    partials = torch.empty((lib.of2d_elastic_nblocks(nx, ny, k), k, 2), dtype=u.dtype,
+                           device=u.device)
     sums = torch.empty((k, 2), dtype=u.dtype, device=u.device)
     _build.launch(
         "of2d_elastic_block", u.device, u.data_ptr(), g.data_ptr(), out.data_ptr(),
@@ -120,7 +158,7 @@ def elastic_block_strip(u_pad: torch.Tensor, g_pad: torch.Tensor, row0: int, nx_
     _build.check_smem(lib.of2d_elastic_block_smem_bytes(k), u_pad.device,
                       f"an elastic block with k={k} (use a smaller block_k)")
     out = torch.empty((2, nxl, ny), dtype=u_pad.dtype, device=u_pad.device)
-    partials = torch.empty((lib.of2d_sor_nblocks(nxl, ny), k, 2), dtype=u_pad.dtype,
+    partials = torch.empty((lib.of2d_elastic_nblocks(nxl, ny, k), k, 2), dtype=u_pad.dtype,
                            device=u_pad.device)
     sums = torch.empty((k, 2), dtype=u_pad.dtype, device=u_pad.device)
     _build.launch(

@@ -227,9 +227,12 @@ def _zero_border(u):
     return u
 
 
-@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (4, 4), (33, 1000)])
-@pytest.mark.parametrize("k,ref_stencil", [(1, True), (2, True), (4, True), (4, False)])
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (4, 4), (33, 1000), (300, 300)])
+@pytest.mark.parametrize("k,ref_stencil", [(1, True), (2, True), (3, True), (3, False),
+                                           (4, True), (4, False), (6, True), (12, False)])
 def test_elastic_block_matches_plain(cuda, shape, k, ref_stencil):
+    """k 1-4 compiled in on 48 x 48 tiles, 6 at run time on them, 12 on
+    32 x 32; 300 x 300 has interior tiles at k <= 4."""
     _, _, g, u = _inputs(*shape, cuda)
     u = _zero_border(u * 0.5)
     got, sums = elastic_block(u, g, 0.25, 0.1, 1.5, ref_stencil, k)
@@ -260,6 +263,15 @@ def test_fluid_metrics_matches_plain(cuda, shape, scale):
     np.testing.assert_allclose(got[:2], want[:2], rtol=SUMS_RTOL)
     np.testing.assert_allclose(got[2], want[2], rtol=1e-6)
     assert scale < 1 or got[2] < 0.5
+
+
+def test_elastic_plans_match_the_kernel(cuda):
+    lib = _build.load()
+    for k in range(1, 17):
+        assert lib.of2d_elastic_block_smem_bytes(k) == k_el.elastic_smem_bytes(k)
+        for nx, ny in ((4, 4), (33, 1000), (100, 77), (25, 77), (4096, 4096)):
+            want = k_el.elastic_tiles(nx, ny, k) if k_el.elastic_plan(k) else 0
+            assert lib.of2d_elastic_nblocks(nx, ny, k) == want
 
 
 def test_elastic_block_rejects_a_tile_that_does_not_fit(cuda):
@@ -401,7 +413,8 @@ def test_diffusion_block_strip_matches_plain_and_dense(cuda, shape, k, n_take):
 
 
 @pytest.mark.parametrize("shape", STRIP_SHAPES)
-@pytest.mark.parametrize("k,ref_stencil", [(1, True), (2, False), (4, True), (4, False)])
+@pytest.mark.parametrize("k,ref_stencil", [(1, True), (2, False), (3, True), (4, True),
+                                           (4, False)])
 def test_elastic_block_strip_matches_plain_and_dense(cuda, shape, k, ref_stencil):
     _, _, g, u = _inputs(*shape, cuda)
     u = (torch.tanh(u) * 0.5).contiguous()
