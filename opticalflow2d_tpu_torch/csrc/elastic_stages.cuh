@@ -52,6 +52,7 @@
 #include "partials.cuh"
 #include "rows.cuh"
 #include "sor_stages.cuh"  // SorScalars, sor_candidate
+#include "tile_stages.cuh"  // StagedTile, store_tile, tile_partials
 
 namespace {
 
@@ -90,15 +91,6 @@ inline int elastic_plan_index(int k) {
 static_assert(elastic_smem_bytes(kElasticMaxStaticK, kElasticPlans[0]) <= kMaxSmemBytes,
               "the compiled-in k take the first plan");
 
-// One tile's buffers in global terms.
-struct ElasticTile {
-  int ex, ey;    // extended tile: buffer rows and columns (row pitch ey)
-  int h;         // halo, 2k
-  int gi0, gj0;  // global cell of buffer cell (0, 0)
-  int nx, ny;    // the image
-  int gi_end;    // end of the global rows the launch owns
-};
-
 // Row W (0: above, 1: the cell's, 2: below) of the 3 x 3 window around
 // buffer cell l, both planes (plane stride pl), into x[c * 9 + W * 3 + j]:
 // the cell's 4-neighbours, of the other colour, from nb, the others from cur.
@@ -117,12 +109,16 @@ __device__ __forceinline__ void window_row(float* x, const float* cur, const flo
 // s + 1 takes its candidate (inside the image's interior) or its value,
 // written to out. nb: where the 4-neighbours are read (P = 0: cur; P = 1:
 // the red half's output). Adds the Logger magnitudes of the owned cells of
-// this colour to dsum, psum (unless !kSums: the probe's breakdown).
-template <int NT, int R, int P, bool kRef, bool kInterior, bool kSums = true>
+// this colour to dsum, psum (unless !kSums: the probe's breakdown and the
+// fluid sweep). The force reads the half's input at the cell, or, with
+// kFixedForce, the fixed field ``fu`` (two planes on the same buffer
+// geometry): the fluid sweep's force at the motion u (fluid_iter.cu).
+template <int NT, int R, int P, bool kRef, bool kInterior, bool kSums = true,
+          bool kFixedForce = false>
 __device__ __forceinline__ void elastic_half(const float* cur, const float* nb, float* out,
-                                             const float* gs, const ElasticTile& g, int s,
+                                             const float* gs, const StagedTile& g, int s,
                                              int tx, int ty, const SorScalars& sc, float& dsum,
-                                             float& psum) {
+                                             float& psum, const float* fu = nullptr) {
   const int pl = g.ex * g.ey, e = g.ey;
   const int lo = s + 1, hi_r = g.ex - lo;
   const int cols = g.ey - 2 * lo;
@@ -148,7 +144,8 @@ __device__ __forceinline__ void elastic_half(const float* cur, const float* nb, 
       float n0 = x[4], n1 = x[13];
       if (col_interior && (kInterior || (gi >= 1 && gi <= g.nx - 2))) {
         const float gx = gs[l], gy = gs[pl + l];
-        const float inner = (gs[2 * pl + l] + x[4] * gx) + x[13] * gy;
+        const float f0 = kFixedForce ? fu[l] : x[4], f1 = kFixedForce ? fu[pl + l] : x[13];
+        const float inner = (gs[2 * pl + l] + f0 * gx) + f1 * gy;
         n0 = sor_candidate<kRef>(x, 9, 3, 4, 0, gx * inner, sc);
         n1 = sor_candidate<kRef>(x, 9, 3, 4, 1, gy * inner, sc);
       }
@@ -177,7 +174,7 @@ __device__ __forceinline__ void elastic_half(const float* cur, const float* nb, 
 template <int K, int NT, int R, bool kRef, bool kInterior>
 __device__ __forceinline__ const float* elastic_iterations(float* cur, float* nxt,
                                                            const float* gs, float* red,
-                                                           const ElasticTile& g, int k, int tx,
+                                                           const StagedTile& g, int k, int tx,
                                                            int ty, const SorScalars& sc) {
   constexpr int kWarps = NT / 32;
 #pragma unroll
@@ -202,37 +199,6 @@ __device__ __forceinline__ const float* elastic_iterations(float* cur, float* nx
   return cur;
 }
 
-// The tile's own cells of buffer u into out [2, r.nxl, ny].
-template <int NT, bool kInterior>
-__device__ __forceinline__ void elastic_store(const float* u, const ElasticTile& g, int tx,
-                                              int ty, const Rows& r, int i0, int j0,
-                                              float* __restrict__ out) {
-  const size_t n = r.out_plane(g.ny);
-  const int pl = g.ex * g.ey;
-  for_cells<NT>(tx, ty, [&](int li, int lj, int) {
-    const int lr = i0 + li - r.row0, gj = j0 + lj;
-    if (!kInterior && (lr >= r.nxl || gj >= g.ny)) return;
-    const size_t p = static_cast<size_t>(lr) * g.ny + gj;
-    const int l = (li + g.h) * g.ey + lj + g.h;
-    out[p] = u[l];
-    out[n + p] = u[pl + l];
-  });
-}
-
-// Block bid's row of the [nblocks, k, 2] partials: the warps in order.
-template <int NT>
-__device__ __forceinline__ void elastic_partials(const float* red, int k, size_t bid,
-                                                 float* __restrict__ partials) {
-  constexpr int kWarps = NT / 32;
-  const int tid = threadIdx.x;
-  if (tid < 2 * k) {
-    const int t = tid >> 1, c = tid & 1;
-    float acc = 0.f;
-    for (int w = 0; w < kWarps; ++w) acc += red[(t * kWarps + w) * 2 + c];
-    partials[bid * 2 * k + tid] = acc;
-  }
-}
-
 // B6 and K2 on one TX x TY tile per block; K > 0 compiles k in.
 template <int K, int TX, int TY, int NT, int MB, bool kRef>
 __global__ void __launch_bounds__(NT, MB)
@@ -247,7 +213,7 @@ elastic_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
   float* gs = nxt + 2 * pl;
   float* red = gs + 3 * pl;
   const int i0 = r.row0 + blockIdx.y * TX, j0 = blockIdx.x * TY;
-  const ElasticTile tile{ex, ey, h, i0 - h, j0 - h, r.nx, ny, r.row0 + r.nxl};
+  const StagedTile tile{ex, ey, h, i0 - h, j0 - h, r.nx, ny, r.row0 + r.nxl};
   const Region region{ex, ey, i0 - h, j0 - h};
   stage_region<NT>(u, 2, r, ny, region, cur);
   stage_region<NT>(g, 3, r, ny, region, gs);
@@ -257,13 +223,13 @@ elastic_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
   if (interior_tile(r, ny, i0, j0, TX, TY, h)) {
     const float* uk = elastic_iterations<K, NT, kElasticRun, kRef, true>(cur, nxt, gs, red, tile,
                                                                           k, TX, TY, s);
-    elastic_store<NT, true>(uk, tile, TX, TY, r, i0, j0, out);
+    store_tile<NT, true>(uk, tile, TX, TY, r, i0, j0, out);
   } else {
     const float* uk = elastic_iterations<K, NT, kElasticRun, kRef, false>(cur, nxt, gs, red,
                                                                            tile, k, TX, TY, s);
-    elastic_store<NT, false>(uk, tile, TX, TY, r, i0, j0, out);
+    store_tile<NT, false>(uk, tile, TX, TY, r, i0, j0, out);
   }
-  elastic_partials<NT>(red, k, static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x,
+  tile_partials<NT>(red, k, static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x,
                        partials);
 }
 

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "of2d_error_string": ((_I,), ctypes.c_char_p),
     "of2d_max_smem_optin": ((_I,), _I),
     "of2d_diffusion_block_smem_bytes": ((_I,), _I),
-    "of2d_diffusion_block_nblocks": ((_I, _I), _I),
+    "of2d_diffusion_block_nblocks": ((_I, _I, _I), _I),
     "of2d_diffusion_block": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     "of2d_diffusion_block_strip": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P), _I),
     "of2d_diffusion_step": ((_P, _P, _P, _P, _P, _I, _I, _F, _P), _I),

@@ -10,6 +10,12 @@ Relative error of iteration t is ``sums[t, 0] / sums[t, 1]``: the step
 magnitude over the previous field's magnitude, both summed over the image
 (the reference's mean per-pixel magnitudes, ``src/Motion.cpp:42-49`` via
 ``src/Logger.cpp:30-60``; the 1/N factors cancel).
+
+A thread block holds one output tile with a halo of ``k`` cells in shared
+memory, 7 planes (u twice, g) of the extended tile: the first of
+``DIFFUSION_PLANS`` whose block fits (48 x 48, 115,712 B at k = 8, two
+blocks an SM; else 32 x 32), the wrapper checking the card's limit before
+the launch. The Logger partials have one row per tile (``diffusion_tiles``).
 """
 
 from __future__ import annotations
@@ -20,7 +26,42 @@ import torch
 
 from opticalflow2d_tpu_torch import kernels
 from opticalflow2d_tpu_torch.kernels import _build
+from opticalflow2d_tpu_torch.kernels.demons_fused import MAX_SMEM_BYTES
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import diffusion_step_ref
+
+
+# The kernel's plans (csrc/diffusion_stages.cuh kDiffusionPlans): output tile
+# rows, columns and threads of a block, in order of preference; a launch
+# takes the first whose shared memory fits a thread block at its k.
+DIFFUSION_PLANS = ((48, 48, 512), (32, 32, 256))
+
+
+def diffusion_smem_floats(k: int, tx: int, ty: int, threads: int) -> int:
+    """Floats of shared memory of one block on plan ``(tx, ty, threads)``:
+    u twice and g (7 planes) on the tile extended by ``k`` a side, and the
+    per-iteration warp partials."""
+    return 7 * (tx + 2 * k) * (ty + 2 * k) + k * (threads // 32) * 2
+
+
+def diffusion_plan(k: int):
+    """The plan a launch at ``k`` takes, or None where no block fits."""
+    for p in DIFFUSION_PLANS:
+        if 4 * diffusion_smem_floats(k, *p) <= MAX_SMEM_BYTES:
+            return p
+    return None
+
+
+def diffusion_smem_bytes(k: int) -> int:
+    """Shared memory of one block at ``k``, or, where no plan fits, of the
+    last plan (more than a block has)."""
+    return 4 * diffusion_smem_floats(k, *(diffusion_plan(k) or DIFFUSION_PLANS[-1]))
+
+
+def diffusion_tiles(nx: int, ny: int, k: int) -> int:
+    """Thread blocks, and rows of the Logger partials, of a launch over
+    ``nx`` (a strip's ``nxl``) rows at ``k``."""
+    tx, ty, _ = diffusion_plan(k)
+    return -(-nx // tx) * -(-ny // ty)
 
 
 def stack_derivs(grad_i: torch.Tensor, it: torch.Tensor) -> torch.Tensor:
@@ -63,9 +104,9 @@ def diffusion_block(u: torch.Tensor, g: torch.Tensor, alpha: float,
     lib = _build.load()
     _build.check_smem(lib.of2d_diffusion_block_smem_bytes(k), u.device,
                       f"a diffusion block with k={k} (use a smaller block_k)")
-    nblocks = lib.of2d_diffusion_block_nblocks(nx, ny)
     out = torch.empty_like(u)
-    partials = torch.empty((nblocks, k, 2), dtype=u.dtype, device=u.device)
+    partials = torch.empty((lib.of2d_diffusion_block_nblocks(nx, ny, k), k, 2), dtype=u.dtype,
+                           device=u.device)
     sums = torch.empty((k, 2), dtype=u.dtype, device=u.device)
     _build.launch(
         "of2d_diffusion_block", u.device, u.data_ptr(), g.data_ptr(),
@@ -127,7 +168,7 @@ def diffusion_block_strip(u_pad: torch.Tensor, g_pad: torch.Tensor, row0: int, n
     _build.check_smem(lib.of2d_diffusion_block_smem_bytes(k), u_pad.device,
                       f"a diffusion block with k={k} (use a smaller block_k)")
     out = torch.empty((2, nxl, ny), dtype=u_pad.dtype, device=u_pad.device)
-    partials = torch.empty((lib.of2d_diffusion_block_nblocks(nxl, ny), k, 2),
+    partials = torch.empty((lib.of2d_diffusion_block_nblocks(nxl, ny, k), k, 2),
                            dtype=u_pad.dtype, device=u_pad.device)
     sums = torch.empty((k, 2), dtype=u_pad.dtype, device=u_pad.device)
     _build.launch(

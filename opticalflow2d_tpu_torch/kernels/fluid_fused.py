@@ -20,6 +20,11 @@ vel', bit for bit, and applies the gated Euler step.
 driver (``parallel.spatial``), pre-padded with ``FLUID_PAD`` halo rows a
 side: the colours, the interior and R's one-sided borders are the image's,
 and its ``max |R|^2`` is the strip's, which the driver maxes over strips.
+
+A thread block holds one output tile of ``FLUID_PLAN`` with a halo of 2
+cells in shared memory, 9 planes (u, the velocity twice, g): 32 rows by 64
+columns, 88,192 B, two blocks an SM. The max partials have one entry per tile
+(``fluid_tiles``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,25 @@ from opticalflow2d_tpu_torch.solvers.elastic import sor_scalars, sor_sweep
 # Halo rows a side the strip-parallel driver gives the strip kernel: the
 # TPU kernel's _PAD (fluid_fused.py:52); the sweep's cone needs 2.
 FLUID_PAD = 8
+
+# The kernels' tile (csrc/fluid_stages.cuh kFluidPlan): output tile rows,
+# columns and threads of a block.
+FLUID_PLAN = (32, 64, 512)
+FLUID_HALO = 2  # the sweep's cone: the black half reads red cells that read one further
+
+
+def fluid_smem_floats(tx: int, ty: int, threads: int) -> int:
+    """Floats of shared memory of one block on plan ``(tx, ty, threads)``:
+    u, the velocity twice and g (9 planes) on the tile extended by
+    ``FLUID_HALO`` a side, and one max per warp."""
+    return 9 * (tx + 2 * FLUID_HALO) * (ty + 2 * FLUID_HALO) + threads // 32
+
+
+def fluid_tiles(nx: int, ny: int) -> int:
+    """Thread blocks, and entries of the max partials, of a launch over
+    ``nx`` (a strip's ``nxl``) rows."""
+    tx, ty, _ = FLUID_PLAN
+    return -(-nx // tx) * -(-ny // ty)
 
 
 def material_derivative(u: torch.Tensor, vel: torch.Tensor) -> torch.Tensor:

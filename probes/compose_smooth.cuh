@@ -13,6 +13,7 @@
 #include <type_traits>
 
 #include "demons_stages.cuh"
+#include "probe_attrs.cuh"
 
 namespace {
 
@@ -168,23 +169,6 @@ int launch_new(const float* u, const float* c, float* out, const Rows& rows, int
   if (rc != 0) return rc;
   kernel<<<blocks, demons_threads(TX, TY), smem, stream>>>(u, c, out, rows, ny, halo, k, td);
   return static_cast<int>(cudaGetLastError());
-}
-
-// A kernel's registers, local (spilled) bytes and resident blocks an SM.
-template <typename Kernel>
-int attrs(Kernel kernel, int threads, int smem, int* out3) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out3[0] = a.numRegs;
-  out3[1] = static_cast<int>(a.localSizeBytes);
-  out3[2] = per_sm;
-  return 0;
 }
 
 }  // namespace

@@ -19,7 +19,6 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -29,11 +28,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from opticalflow2d_tpu_torch.kernels import _build  # noqa: E402
 from opticalflow2d_tpu_torch.kernels import demons_fused as k_df  # noqa: E402
 from opticalflow2d_tpu_torch.parallel import spatial  # noqa: E402
+import probe_tools  # noqa: E402
 
-BUILD = ROOT / "build" / "probe"
 N, KW, SD, HALO, STRIPS, PAD = 4096, 5, 2.0, 5, 4, 8
 # The design taken: 64 x 64 tiles, one staging buffer, 64 registers (two
 # blocks an SM), two compose cells in flight, 32-bit offsets.
@@ -106,53 +104,15 @@ def source(items):
     return "\n".join(out)
 
 
-def build(items, parts=8):
-    """One nvcc per part, all started together; returns the loaded library."""
-    BUILD.mkdir(parents=True, exist_ok=True)
-    flags = [*_build.NVCC_FLAGS, "-I", str(Path(__file__).parent), "-I", str(_build.CSRC)]
-    procs, objs = [], []
-    for i in range(parts):
-        src, obj = BUILD / f"part{i}.cu", BUILD / f"part{i}.o"
-        src.write_text(source(items[i::parts]))
-        objs.append(obj)
-        procs.append(subprocess.Popen([_build._nvcc(), *flags, "-c", "-o", str(obj), str(src)],
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True))
-    logs = [p.communicate()[0] for p in procs]
-    if any(p.returncode for p in procs):
-        raise SystemExit("nvcc failed:\n" + "\n".join(logs)[-20000:])
-    lib = BUILD / "libprobe.so"
-    subprocess.run([_build._nvcc(), "-shared", "-o", str(lib), *map(str, objs)], check=True)
-    return ctypes.CDLL(str(lib))
-
-
-def median_ms(fn, runs=20, warmup=3, batch=10):
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(batch):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / batch)
-    return float(np.median(times))
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", required=True, help="JSON lines file to write")
     ap.add_argument("--only", help="regular expression on the variants' names")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+    card = probe_tools.card()
     items = [v for v in variants() if not args.only or re.search(args.only, name_of(*v))]
     t0 = time.time()
-    lib = build(items)
+    lib = probe_tools.build("compose", source, items)
     build_s = time.time() - t0
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(1)
@@ -196,7 +156,7 @@ def main():
     for rnd, order in enumerate((rows, rows[::-1])):
         for fn, strip, out, rec in order:
             c = v7 if strip else v
-            rec[f"ms{rnd}"] = median_ms(lambda: call(fn, strip, c, out, rec["kw"]))
+            rec[f"ms{rnd}"] = probe_tools.median_ms(lambda: call(fn, strip, c, out, rec["kw"]))
     with open(args.out, "w") as fh:
         fh.write(json.dumps({"card": card, "build_s": build_s, "variants": len(rows)}) + "\n")
         for *_, rec in rows:

@@ -15,6 +15,8 @@
 #include <cstddef>
 
 #include "elastic_stages.cuh"
+#include "probe_attrs.cuh"
+#include "sor_before.cuh"
 
 namespace {
 
@@ -158,7 +160,7 @@ __device__ __forceinline__ void load_region(const float* __restrict__ src, int n
 // computes its cells' candidates into registers (at most M items of R
 // cells), then the block waits, then each writes them over its cells.
 template <int NT, int R, int P, int M, bool kRef, bool kInterior, bool kSums>
-__device__ __forceinline__ void inplace_half(float* u, const float* gs, const ElasticTile& g,
+__device__ __forceinline__ void inplace_half(float* u, const float* gs, const StagedTile& g,
                                              int s, int tx, int ty, const SorScalars& sc,
                                              float& dsum, float& psum) {
   const int pl = g.ex * g.ey, e = g.ey;
@@ -245,7 +247,7 @@ __host__ __device__ constexpr int inplace_items(int k, int tx, int ty, int nt, i
 template <int K, int TX, int TY, int NT, int R, bool kRef, int LAYOUT, int NHALF, bool SUMS,
           bool kInterior>
 __device__ __forceinline__ const float* new_iterations(float* cur, float* nxt, const float* gs,
-                                                       float* red, const ElasticTile& g, int k,
+                                                       float* red, const StagedTile& g, int k,
                                                        const SorScalars& sc) {
   constexpr int kWarps = NT / 32;
   constexpr int M = inplace_items(K, TX, TY, NT, R);
@@ -302,7 +304,7 @@ new_kernel(const float* __restrict__ u, const float* __restrict__ g, float* __re
   float* gs = cur + (LAYOUT == 0 ? 4 : 2) * pl;
   float* red = gs + 3 * pl;
   const int i0 = r.row0 + blockIdx.y * TX, j0 = blockIdx.x * TY;
-  const ElasticTile tile{ex, ey, h, i0 - h, j0 - h, r.nx, ny, r.row0 + r.nxl};
+  const StagedTile tile{ex, ey, h, i0 - h, j0 - h, r.nx, ny, r.row0 + r.nxl};
   const Region region{ex, ey, i0 - h, j0 - h};
   if (STAGE == 0) {
     stage_region<NT>(u, 2, r, ny, region, cur);
@@ -318,14 +320,14 @@ new_kernel(const float* __restrict__ u, const float* __restrict__ g, float* __re
     const float* uk =
         new_iterations<K, TX, TY, NT, R, kRef, LAYOUT, NHALF, SUMS, true>(cur, nxt, gs, red,
                                                                           tile, k, s);
-    elastic_store<NT, true>(uk, tile, TX, TY, r, i0, j0, out);
+    store_tile<NT, true>(uk, tile, TX, TY, r, i0, j0, out);
   } else {
     const float* uk =
         new_iterations<K, TX, TY, NT, R, kRef, LAYOUT, NHALF, SUMS, false>(cur, nxt, gs, red,
                                                                            tile, k, s);
-    elastic_store<NT, false>(uk, tile, TX, TY, r, i0, j0, out);
+    store_tile<NT, false>(uk, tile, TX, TY, r, i0, j0, out);
   }
-  elastic_partials<NT>(red, k, static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x, partials);
+  tile_partials<NT>(red, k, static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x, partials);
 }
 
 template <int K, int TX, int TY, int NT, int MB, int R, bool kRef, int LAYOUT, int STAGE,
@@ -387,17 +389,17 @@ pers_kernel(const float* __restrict__ u, const float* __restrict__ g, float* __r
     }
     __syncthreads();
     const int i0 = r.row0 + (t / tiles_y) * TX, j0 = (t % tiles_y) * TY;
-    const ElasticTile tile{ex, ey, h, i0 - h, j0 - h, r.nx, ny, r.row0 + r.nxl};
+    const StagedTile tile{ex, ey, h, i0 - h, j0 - h, r.nx, ny, r.row0 + r.nxl};
     if (interior_tile(r, ny, i0, j0, TX, TY, h)) {
       const float* uk = elastic_iterations<K, NT, R, kRef, true>(area, extra, area + 2 * pl, red,
                                                                   tile, k, TX, TY, s);
-      elastic_store<NT, true>(uk, tile, TX, TY, r, i0, j0, out);
+      store_tile<NT, true>(uk, tile, TX, TY, r, i0, j0, out);
     } else {
       const float* uk = elastic_iterations<K, NT, R, kRef, false>(area, extra, area + 2 * pl, red,
                                                                    tile, k, TX, TY, s);
-      elastic_store<NT, false>(uk, tile, TX, TY, r, i0, j0, out);
+      store_tile<NT, false>(uk, tile, TX, TY, r, i0, j0, out);
     }
-    elastic_partials<NT>(red, k, t, partials);
+    tile_partials<NT>(red, k, t, partials);
     __syncthreads();
   }
 }
@@ -416,23 +418,6 @@ int launch_pers(const float* u, const float* g, float* out, float* partials, flo
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_sum_partials(partials, sums, tiles, 2 * k, stream);
-}
-
-// A kernel's registers, local (spilled) bytes and resident blocks an SM.
-template <typename Kernel>
-int attrs(Kernel kernel, int threads, int smem, int* out3) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out3[0] = a.numRegs;
-  out3[1] = static_cast<int>(a.localSizeBytes);
-  out3[2] = per_sm;
-  return 0;
 }
 
 }  // namespace
