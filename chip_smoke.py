@@ -42,6 +42,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    demons strips K5-K7 at halo 5 and kernelwidth 3, 5, 7, 11 and 43, each on its
    exact pad, with displacements of up to 2 px (also bit for bit against
    B10-B12's rows) and of up to +-40 px (plain version only).
+   Then the library routes of the spectral solvers, which have no kernel
+   of their own (cuBLAS matmuls, cuFFT): the curvature solve by the matmul
+   and the fft route and the periodic Navier-Lame solve at 4096^2 and
+   1000x777, the Dirichlet solve at 1024^2, each against its CPU run (<=
+   1e-5 of max |out|, or past that within 3 times the route's own change
+   under a rounding of its input, the float32 noise of the ill-conditioned
+   Dirichlet system) and run again with the caller's TF32 switches on
+   (cuBLAS and cuDNN), which must give the same bits and be restored; the
+   fft route against the matmul route on the card.
 3. The main paths through the session API at 4096^2, each with the launch
    counts set to 0 just before it and read just after:
    a. diffusion on a pair of three blobs, 5 levels (SSD reduction >= 0.9,
@@ -75,6 +84,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
       the dense run of the family on the same pair (3d, 3e, and dense
       diffusion, Thirion and diffeomorphic runs on the tiled pair),
       reported, not gated.
+   h. the spectral solvers: curvature [0.1, 1.0] (dct_impl "auto": the
+      matmul route, RegConfig.resolved_dct_impl says why) on the tiled
+      pair, 3 levels; fluid [0.25, 0] and elastic
+      [0.25, 0] with the periodic Navier-Lame solve (fluid_spectral,
+      elastic_spectral) and elastic [0.5, 0] with the Dirichlet solve at
+      1024^2 (elastic_dirichlet) on the blob pair, 5 levels
+      (SPECTRAL_PATHS says why); each launches warp, compose and the
+      Logger norms (fluid: the fluid metrics) and no block or
+      fluid-iteration kernel. Curvature's route is the dense transform,
+      1.1 TFLOP an iteration at 4096^2, so it runs 100 iterations a
+      level at most. sp_curvature: make_register_sp on 4 strips of the
+      tiled pair (halo 5, the same cap; the strip warp and compose),
+      beside the dense curvature run.
    Every path needs SSD reduction >= 0.9 and a finite motion; the phase
    prints iterations, regrids, wall time, host reads per level and
    launches. The tiled pair keeps its sigma = 6 px blobs at every size;
@@ -84,15 +106,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 4. Profiles of runs 3b, 3c, 3e and the five 3g runs (sp_thirion and
    sp_diffeo capped at DEMONS_PROFILE_NITER iterations a level), of the
    dense elastic and tiled diffusion runs, and of the dense Thirion and
-   diffeomorphic runs on the tiled pair at the strip profiles' cap: the
-   device's busy share, the host syncs, the device time of the
-   concatenations (the halo pads) and of each of the port's kernels.
+   diffeomorphic runs on the tiled pair at the strip profiles' cap, and of
+   curvature, fluid_spectral and sp_curvature: the device's busy share,
+   the host syncs, the device time of the concatenations (the halo pads),
+   of cuBLAS and cuFFT and of each of the port's kernels.
 5. Slice parity at 512^2 for each path: the CPU (plain versions) against
    the GPU (kernels), motion <= 1e-5 px and equal iteration and regrid
    counts at every level; and the fluid run again with every level on the
    two-pass route (its extent lowered to 0), equal to the default GPU run
-   bit for bit, with equal counts; and the five sp_* paths at 512^2 in 4
-   strips, CPU against GPU, with the same gates.
+   bit for bit, with equal counts; and the six sp_* paths at 512^2 in 4
+   strips, CPU against GPU, with the same gates; the spectral paths
+   (curvature by each route) CPU against GPU, and the curvature fft route
+   against the matmul route on the card (gated while dct_impl "auto"
+   resolves to "fft", printed otherwise), with the same gates:
+   fluid_spectral at 5 iterations a level (FLUID_SPECTRAL_PARITY_NITER
+   says why), elastic_dirichlet at a fixed 12 a level within 3 times the
+   CPU run's own change under a rounding of its input (DIRICHLET_PARITY);
+   both also at 200 with the default stop, reported beside the CPU run's
+   own changes under an ulp of one input pixel and a rounding of all.
 6. Times at 4096^2: median of 20 CUDA-event-timed runs of 10 calls each,
    of each kernel and of its plain version, and its bound; and of one
    fluid iteration by each route (B7 and the plain Euler tail; B8, the
@@ -103,7 +134,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    block's at k = 8 and the fluid kernels' plan with their memory bounds,
    and each demons, elastic, diffusion-block and fluid-sweep kernel's bound
    under the instruction floor (the float32 rate without fused
-   multiply-adds, which -fmad=false forbids).
+   multiply-adds, which -fmad=false forbids). And one solve of each library
+   route (curvature by each route and the periodic Navier-Lame solve at
+   4096^2, the Dirichlet solve at 1024^2) beside its bound: operations
+   over the float32 rate for the matmul routes, bytes over the memory rate
+   (each pass of the transform reading and writing its planes) for the
+   FFT routes.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -149,7 +185,10 @@ from opticalflow2d_tpu_torch.metrics import ssd_reduction
 from opticalflow2d_tpu_torch.parallel import make_mesh, make_register_sp, spatial
 from opticalflow2d_tpu_torch.solvers.base import derivatives
 from opticalflow2d_tpu_torch.solvers.demons import demons_route
+from opticalflow2d_tpu_torch.solvers.curvature import make_curvature_solve
 from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
+from opticalflow2d_tpu_torch.solvers.navier_lame import (
+    make_dirichlet_navier_lame_solver, make_spectral_navier_lame_solver)
 
 FIELD_TOL = 1e-6      # kernel vs plain version, max-abs
 SUMS_RTOL = 1e-5      # Logger sums, relative
@@ -204,6 +243,70 @@ ELASTIC = (0.5, 0.0, 0.66)  # mu, lambda, omega of the elastic path and the kern
 FLUID = (0.25, 0.0, 0.66)
 REGRID_FALLBACK = 0.95  # regrid threshold of the second fluid run, if the first has none
 
+# The spectral solvers (no kernel of their own: cuBLAS matmuls and cuFFT at
+# full float32). Curvature takes examples/demo.py's [alpha, tau]. The
+# Dirichlet solve's DST-I matmuls grow as n^3 (12 CG iterations of 8
+# matmuls an outer iteration: 0.2 TFLOP at 1024^2, 13 at 4096^2), so its
+# path runs at 1024^2.
+CURVATURE = [0.1, 1.0]
+N_DIRICHLET = 1024
+# The curvature paths' cap a level, dense and on strips: their route is the
+# dense transform, 1.1 TFLOP an iteration at 4096^2.
+CURVATURE_NITER = 100
+SPECTRAL_PARITY_NITER = 200
+# fluid_spectral's gated parity run is this short: its trajectory moves by
+# 1e-6 px on the CPU alone when one input pixel changes by an ulp, and by
+# far more past tens of iterations, where a regrid moves (its timestep is
+# dumax over a maximum of the field; probes/spectral_paths.py), so cuFFT's
+# rounding against the CPU's FFT is gated here and reported at
+# SPECTRAL_PARITY_NITER beside that sensitivity.
+FLUID_SPECTRAL_PARITY_NITER = 5
+# elastic_dirichlet's: its float32 solve moves by 2.8e-5 of max |v| when its
+# input is rounded again (input_rounding_noise at 1024^2), which moves its
+# Logger stop across devices. The gated run takes a fixed count
+# (tol 0, the count its levels stop at) and holds the card to the CPU within
+# NOISE_FACTOR times the CPU run's own change under a rounding of the
+# moving image; the default run is reported beside it.
+DIRICHLET_PARITY = dict(niter=12, convergence_tol=0.0)
+LIBRARY_RTOL = 1e-5  # a library route on the card against the CPU, of max |out|
+# or, past it, this many times the route's own input rounding noise
+# (input_rounding_noise): the Dirichlet solve's float32 answer is that
+# uncertain on any device.
+NOISE_FACTOR = 3
+# (name, method, regparams, pair, n, nscales, config overrides). The
+# spectral Navier-Lame paths run on the blob pair, whose background is flat.
+# Elastic's iteration u <- A^-1 f(u) with an exact solve diverges once mu
+# times A's least eigenvalue, mu (2 pi / n)^2 (Dirichlet: mu (pi / n)^2),
+# falls well below |grad I|^2, which on the tiled pair (6 px features at
+# every n) happens from 256^2 up (the map is the JAX package's, which the
+# port matches at 64x48); on the blob pair both scale as 1/n^2. The periodic solve zeroes the mean
+# mode, so neither family registers a uniform shift of an image that is
+# structure everywhere: fluid_spectral reaches an SSD reduction of 0.671
+# on the tiled pair at 4096^2, where elastic's motion is not finite; on
+# the blob pair elastic reaches 0.859 at [0.5, 0] and 0.942 at [0.25, 0]
+# (H100; probes/spectral_paths.py).
+SPECTRAL_PATHS = (
+    ("curvature", Method.CURVATURE, CURVATURE, "tiled", N_MAIN, TILED_NSCALES,
+     CURVATURE_NITER, dict(dct_impl="auto")),
+    ("elastic_spectral", Method.ELASTIC, [0.25, 0.0], "blob", N_MAIN, MAIN_NSCALES, NITER,
+     dict(navier_lame_solver="spectral")),
+    ("fluid_spectral", Method.FLUID, [0.25, 0.0], "blob", N_MAIN, MAIN_NSCALES, NITER,
+     dict(navier_lame_solver="spectral")),
+    ("elastic_dirichlet", Method.ELASTIC, [0.5, 0.0], "blob", N_DIRICHLET, MAIN_NSCALES, NITER,
+     dict(navier_lame_solver="spectral_dirichlet")),
+)
+# The kernels each spectral path must launch, and those it must not: it
+# runs no block or fluid-iteration kernel (the spectral fluid step takes
+# neither fused route, as in JAX).
+SPECTRAL_KERNELS = {"curvature": ("warp2d", "compose", "logger_norms"),
+                    "elastic_spectral": ("warp2d", "compose", "logger_norms"),
+                    "elastic_dirichlet": ("warp2d", "compose", "logger_norms"),
+                    "fluid_spectral": ("warp2d", "compose", "fluid_metrics")}
+NOT_ON_SPECTRAL = ("diffusion_block", "diffusion_step", "elastic_block", "fluid_iter",
+                   "fluid_sweep_max", "fluid_euler")
+SP_CURVATURE = ("sp_curvature", "curvature", dict(alpha=CURVATURE[0], tau=CURVATURE[1],
+                                                  halo=SP_HALO))
+
 # The main paths: (name, method, regparams, pair, nscales). DIFFUSION_TILED
 # is the dense diffusion run beside sp_diffusion, on its pair.
 PATHS = (
@@ -249,7 +352,8 @@ SP_PATHS = (
 # the demons launch theirs once a strip an iteration.
 SP_KERNEL = {"diffusion": ("diffusion_block_strip",), "elastic": ("elastic_block_strip",),
              "fluid": ("fluid_iter_strip",), "thirions": ("demons_onepass_strip",),
-             "diffeo": ("demons_correspondence_strip", "compose_smooth_strip")}
+             "diffeo": ("demons_correspondence_strip", "compose_smooth_strip"),
+             "curvature": ()}
 
 KERNELS = {
     "diffusion_block": ("cuda", "opticalflow2d_tpu_torch/csrc/diffusion_block.cu",
@@ -475,6 +579,107 @@ def phase_kernels(dev) -> dict:
     check_diffusion_strips(err, dev, small, g)
     check_fluid_strips(err, dev, small, fluid_velocity(small), g)
     return err
+
+
+def library_solvers(nx: int, ny: int) -> dict:
+    """The spectral routes at one shape, each built once: the curvature
+    solve by the matmul and the fft route, the periodic Navier-Lame solve
+    at fluid's parameters and the Dirichlet one at elastic's."""
+    return {
+        "curvature_matmul": make_curvature_solve(nx, ny, *CURVATURE, dct_impl="matmul"),
+        "curvature_fft": make_curvature_solve(nx, ny, *CURVATURE, dct_impl="fft"),
+        "navier_lame_periodic": make_spectral_navier_lame_solver(nx, ny, *FLUID[:2]),
+        "navier_lame_dirichlet": make_dirichlet_navier_lame_solver(nx, ny, *ELASTIC[:2]),
+    }
+
+
+LIBRARY_SHAPES = {"curvature_matmul": ((N_MAIN, N_MAIN), KERNEL_SHAPES[-1]),
+                  "curvature_fft": ((N_MAIN, N_MAIN), KERNEL_SHAPES[-1]),
+                  "navier_lame_periodic": ((N_MAIN, N_MAIN), KERNEL_SHAPES[-1]),
+                  "navier_lame_dirichlet": ((N_DIRICHLET, N_DIRICHLET),)}
+
+
+def tf32_flags():
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def set_tf32(flags) -> None:
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def input_rounding_noise(solve, f: torch.Tensor, out: torch.Tensor) -> float:
+    """How far ``solve`` on the CPU moves when its input is scaled by 1 +
+    1e-7 and rounded again (each element moves by up to half an ulp): the
+    float32 solve's own sensitivity to rounding, of max |out|. The
+    Dirichlet system's condition grows as n^2: at 1024^2 this is 2.8e-5
+    (probes/spectral_paths.py on the CPU)."""
+    return rel_max(solve((f.double() * (1 + 1e-7)).float()), out)
+
+
+def phase_library(dev) -> dict:
+    """The spectral routes (cuBLAS, cuFFT; no kernel of their own) on the
+    card at the main paths' shapes against their CPU run, each also run
+    with the caller's TF32 switches on (cuBLAS and cuDNN), which must give
+    the same bits and be restored after; and the fft route against the
+    matmul route on the card. Returns each route's largest difference from
+    the CPU."""
+    rng = np.random.default_rng(SEED + 2)
+    worst = {name: 0.0 for name in LIBRARY_SHAPES}
+    shapes = sorted({sh for v in LIBRARY_SHAPES.values() for sh in v})
+    # Does TF32 change a plain float32 matmul on this build and card? If not,
+    # the invariance below holds trivially.
+    a = torch.randn((1024, 1024), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    before = tf32_flags()
+    set_tf32((True, True))
+    try:
+        tf32_mm = a @ a
+    finally:
+        set_tf32(before)
+    emit({"phase": "library", "tf32_changes_a_plain_matmul": not torch.equal(tf32_mm, a @ a)})
+    for nx, ny in shapes:
+        f = torch.from_numpy(rng.standard_normal((2, nx, ny)).astype(np.float32))
+        f_dev = f.to(dev)
+        outs = {}
+        for name, solve in library_solvers(nx, ny).items():
+            if (nx, ny) not in LIBRARY_SHAPES[name]:
+                continue
+            t0 = time.perf_counter()
+            cpu = solve(f)
+            cpu_s = time.perf_counter() - t0
+            outs[name] = gpu = solve(f_dev)
+            set_tf32((True, True))
+            try:
+                tf32 = solve(f_dev)
+                inside = tf32_flags()
+            finally:
+                set_tf32(before)
+            torch.cuda.synchronize()
+            e = rel_max(gpu.cpu(), cpu)
+            same = torch.equal(tf32, gpu)
+            noise = input_rounding_noise(solve, f, cpu) if e > LIBRARY_RTOL else None
+            emit({"phase": "library", "route": name, "shape": [nx, ny], "rel_err_vs_cpu": e,
+                  "input_rounding_noise": noise, "tf32_on_bit_equal": same,
+                  "caller_flags_kept": inside == (True, True), "cpu_s": cpu_s})
+            require(e <= LIBRARY_RTOL or e <= NOISE_FACTOR * noise,
+                    f"{name} {(nx, ny)}: GPU vs CPU {e}, input rounding noise {noise}")
+            require(same, f"{name} {(nx, ny)}: the caller's TF32 changed the result")
+            require(inside == (True, True) and tf32_flags() == before,
+                    f"{name}: the caller's TF32 switches were not restored")
+            worst[name] = max(worst[name], e)
+            del cpu, tf32
+        if "curvature_fft" in outs:
+            e = rel_max(outs["curvature_fft"], outs["curvature_matmul"])
+            emit({"phase": "library", "route": "curvature_fft", "against": "curvature_matmul",
+                  "shape": [nx, ny], "rel_err": e})
+            require(e <= LIBRARY_RTOL, f"curvature fft vs matmul {(nx, ny)}: {e}")
+        del f, f_dev, outs
+        torch.cuda.empty_cache()
+    return worst
 
 
 def elastic_inputs(dev, gen: torch.Generator, iref, imov):
@@ -854,17 +1059,18 @@ def check_scalar(name: str, got: torch.Tensor, want: torch.Tensor, shape, exact:
     require(e <= (0.0 if exact else SCALAR_RTOL), f"{name} {shape} {info}: relative error {e}")
 
 
-def host_reads(method: Method, regparams, iterations: int) -> int:
+def host_reads(method: Method, regparams, iterations: int, spectral: bool = False) -> int:
     """Device-to-host reads a (level, refinement) of a path makes: the
     blocked drivers read the Logger sums once a block (8 diffusion or 4
-    elastic iterations); demons once an iteration, twice on the two-kernel
-    route (the exp map's maxabs); fluid once an iteration (the Logger sums
-    and the minimum Jacobian determinant together)."""
+    elastic iterations); curvature and the spectral elastic solves once an
+    iteration (blocks of one); demons once an iteration, twice on the
+    two-kernel route (the exp map's maxabs); fluid once an iteration (the
+    Logger sums and the minimum Jacobian determinant together)."""
     if method == Method.DIFFUSION:
         return -(-iterations // 8)
-    if method == Method.ELASTIC:
+    if method == Method.ELASTIC and not spectral:
         return -(-iterations // ELASTIC_K)
-    if method == Method.FLUID:
+    if method in (Method.FLUID, Method.ELASTIC, Method.CURVATURE):
         return iterations
     route = demons_route(regparams[0], regparams[1], int(regparams[4]),
                          method == Method.DIFFEOMORPHIC_DEMONS)
@@ -907,10 +1113,12 @@ def drive_main(dev, path: str, method: Method, regparams, nscales: int, iref, im
     red = float(ssd_reduction(iref, imov, res.motion))
     finite = bool(torch.isfinite(motion).all()) and bool(torch.isfinite(ireg).all())
     iterations = [t.iterations for t in res.traces]
+    spectral = overrides.get("navier_lame_solver", "sor") != "sor"
     emit({"phase": "main", "path": path, "shape": [n, n], "nscales": nscales,
           "regparams": regparams, **overrides, "wall_s": wall, "iterations": iterations,
           "regrids": [t.regrids for t in res.traces],
-          "host_reads_per_level": [host_reads(method, regparams, n) for n in iterations],
+          "host_reads_per_level": [host_reads(method, regparams, n, spectral)
+                                   for n in iterations],
           "ssd_reduction": red, "finite": finite, "motion_shape": list(motion.shape),
           "mean_motion_px": [float(res.motion[c].mean()) for c in range(2)],
           "peak_memory_gib": peak / 2 ** 30, "launches": launches})
@@ -938,7 +1146,36 @@ def phase_main(dev) -> dict:
                                                    *pair_on(dev, pair, N_MAIN))
     for name, family, params, _, _ in SP_PATHS:
         launches[name] = drive_sp(dev, name, family, params, dense[family])
+    launches.update(drive_spectral(dev))
     return launches
+
+
+def drive_spectral(dev) -> dict:
+    """The spectral paths (SPECTRAL_PATHS) and sp_curvature, each with its
+    launches read as the other main paths' are: warp, compose
+    and the Logger norms (fluid: the fluid metrics) on every dense path, no
+    block or fluid-iteration kernel; the strip warp and compose on
+    sp_curvature. Each iteration is one solve of its library route."""
+    launches = {}
+    dense = {}
+    for name, method, regparams, pair, n, nscales, niter, overrides in SPECTRAL_PATHS:
+        launches[name], dense[name] = drive_main(dev, name, method, regparams, nscales,
+                                                 *pair_on(dev, pair, n), niter=niter,
+                                                 **overrides)
+        check_spectral_launches(name, launches[name], dense[name])
+    # Beside the dense curvature run: the same route ("auto" is the dense
+    # transform) at the same cap.
+    name, family, params = SP_CURVATURE
+    launches[name] = drive_sp(dev, name, family, params, dense["curvature"], CURVATURE_NITER)
+    return launches
+
+
+def check_spectral_launches(name: str, launches: dict, res) -> None:
+    want, none = SPECTRAL_KERNELS[name], NOT_ON_SPECTRAL
+    emit({"phase": "main", "path": name, "library_solves": sum(t.iterations for t in res.traces),
+          "must_launch": want, "must_not_launch": none})
+    require(all(launches[k] > 0 for k in want), f"{name}: launched no {want}: {launches}")
+    require(not any(launches[k] for k in none), f"{name}: launched one of {none}: {launches}")
 
 
 def sp_solver(devices, family: str, params: dict, nscales: int, niter: int = NITER):
@@ -966,20 +1203,21 @@ def sp_host_reads(family: str, iterations: int) -> int:
     once a block (8 diffusion or 4 elastic iterations); fluid once an
     iteration (the Logger error and the minimum Jacobian determinant);
     the demons once an iteration (the Logger error), diffeomorphic twice
-    (and the exp map's maxabs)."""
-    if family in ("fluid", "thirions"):
+    (and the exp map's maxabs); curvature once an iteration (the Logger
+    error)."""
+    if family in ("fluid", "thirions", "curvature"):
         return iterations
     if family == "diffeo":
         return 2 * iterations
     return -(-iterations // (8 if family == "diffusion" else 4))
 
 
-def drive_sp(dev, name: str, family: str, params: dict, dense) -> dict:
+def drive_sp(dev, name: str, family: str, params: dict, dense, niter: int = NITER) -> dict:
     """A strip-parallel path at 4096^2 with the launch counts set to 0 just
     before it; its checks, its launches read just after, and its
     difference from the dense run of its family on the same pair."""
     iref, imov = tiled_pair(N_MAIN, dev)
-    solve = sp_solver([dev] * SP_STRIPS, family, params, TILED_NSCALES)
+    solve = sp_solver([dev] * SP_STRIPS, family, params, TILED_NSCALES, niter)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
@@ -995,7 +1233,7 @@ def drive_sp(dev, name: str, family: str, params: dict, dense) -> dict:
     used = SP_KERNEL[family] + ("warp2d_strip", "compose_strip")
     reads = [sp_host_reads(family, n) for n in res.iterations]
     emit({"phase": "main", "path": name, "shape": [N_MAIN, N_MAIN], "strips": SP_STRIPS,
-          "nscales": TILED_NSCALES, "params": params, "wall_s": wall,
+          "nscales": TILED_NSCALES, "params": params, "niter": niter, "wall_s": wall,
           "iterations": list(res.iterations), "regrids": list(res.regrids),
           "host_reads_per_level": reads,
           "host_reads_per_iteration": sum(reads) / sum(res.iterations),
@@ -1059,6 +1297,16 @@ def profile_run(path: str, run) -> None:
     # pyramid's and the gathers' copies.
     cat_us = sum(r.self_device_time_total for r in rows
                  if r.device_type.name == "CUDA" and "Cat" in r.key)
+    # Device time of the library routes: cuBLAS's matmul kernels and cuFFT's.
+    library = {"cublas_ms": 0.0, "cufft_ms": 0.0}
+    for r in rows:
+        key = r.key.lower()
+        if r.device_type.name != "CUDA" or r.self_device_time_total <= 0:
+            continue
+        if "fft" in key:
+            library["cufft_ms"] += r.self_device_time_total / 1e3
+        elif "gemm" in key or "xmma" in key or "cutlass" in key:
+            library["cublas_ms"] += r.self_device_time_total / 1e3
     # Device time and launches of each of the port's kernels by function
     # (they live in anonymous namespaces; PyTorch's in at::native).
     ours = {}
@@ -1073,7 +1321,7 @@ def profile_run(path: str, run) -> None:
           "iterations": sum(iterations), "regrids": sum(regrids),
           "stream_syncs": syncs,
           "syncs_per_iteration": syncs / sum(iterations),
-          "cat_ms": cat_us / 1e3, "cat_share": cat_us / max(device_us, 1e-9),
+          "cat_ms": cat_us / 1e3, "cat_share": cat_us / max(device_us, 1e-9), **library,
           "top": [{"name": r.key[:60], "ms": r.self_device_time_total / 1e3,
                    "count": r.count} for r in top],
           "port_kernels": {name: {"ms": ms, "count": count}
@@ -1094,12 +1342,31 @@ def phase_profile(dev, path: str, niter: int = NITER) -> None:
     profile_run(path, run)
 
 
+def phase_profile_spectral(dev, path: str) -> None:
+    """A spectral path (SPECTRAL_PATHS) under the profiler."""
+    _, method, regparams, pair, n, nscales, niter, overrides = next(p for p in SPECTRAL_PATHS
+                                                                    if p[0] == path)
+    iref, imov = pair_on(dev, pair, n)
+
+    def run():
+        _, res, _, _, _ = run_main(dev, method, regparams, nscales, iref, imov, niter,
+                                   **overrides)
+        return [t.iterations for t in res.traces], [t.regrids for t in res.traces]
+
+    profile_run(path, run)
+
+
 def phase_profile_sp(dev, name: str) -> None:
-    """A strip-parallel path (SP_PATHS) under the profiler; the demons
-    paths with DEMONS_PROFILE_NITER iterations a level at most."""
-    _, family, params, _, _ = next(p for p in SP_PATHS if p[0] == name)
+    """A strip-parallel path (SP_PATHS, SP_CURVATURE) under the profiler;
+    the demons paths with DEMONS_PROFILE_NITER iterations a level at most,
+    sp_curvature at its cap."""
+    if name == SP_CURVATURE[0]:
+        _, family, params = SP_CURVATURE
+    else:
+        _, family, params, _, _ = next(p for p in SP_PATHS if p[0] == name)
     iref, imov = tiled_pair(N_MAIN, dev)
-    niter = DEMONS_PROFILE_NITER if family in ("thirions", "diffeo") else NITER
+    niter = {"thirions": DEMONS_PROFILE_NITER, "diffeo": DEMONS_PROFILE_NITER,
+             "curvature": CURVATURE_NITER}.get(family, NITER)
     solve = sp_solver([dev] * SP_STRIPS, family, params, TILED_NSCALES, niter)
 
     def run():
@@ -1141,9 +1408,114 @@ def phase_parity(dev) -> dict:
         require(rg_cpu == rg_gpu, f"{path}: regrids differ: {rg_cpu} vs {rg_gpu}")
         if method == Method.FLUID:
             launches["fluid_two_pass"] = parity_two_pass(dev, iref, imov, cfg, gpu)
-    for name, family, params, _, _ in SP_PATHS:
+    for name, family, params, _, _ in SP_PATHS + (SP_CURVATURE + (None, None),):
         launches[name] = parity_sp(dev, name, family, params)
+    launches.update(parity_spectral(dev))
     return launches
+
+
+def parity_spectral(dev) -> dict:
+    """The spectral paths at 512^2, CPU against GPU (curvature by each
+    route), and the curvature fft route against the matmul route on the
+    card: motion within PARITY_TOL, equal iteration and regrid counts."""
+    runs = [(f"curvature_{impl}", Method.CURVATURE, CURVATURE, "tiled", dict(dct_impl=impl))
+            for impl in ("matmul", "fft")]
+    runs += [(name, method, regparams, pair, overrides)
+             for name, method, regparams, pair, _, _, _, overrides in SPECTRAL_PATHS[1:]]
+    launches, gpu_runs = {}, {}
+    for name, method, regparams, pair, overrides in runs:
+        extra = {"fluid_spectral": dict(niter=FLUID_SPECTRAL_PARITY_NITER),
+                 "elastic_dirichlet": DIRICHLET_PARITY}.get(name, {})
+        cfg, iref, imov = spectral_parity_setup(name, **extra)
+        t0 = time.perf_counter()
+        cpu = register(iref, imov, cfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        gpu = gpu_runs[name] = register(iref.to(dev), imov.to(dev), cfg)
+        torch.cuda.synchronize()
+        launches[name] = dict(kernels.LAUNCHES)
+        info = dict(niter=cfg.niter[0], convergence_tol=cfg.convergence_tol, cpu_s=cpu_s,
+                    launches=launches[name])
+        tol = PARITY_TOL
+        if name == "elastic_dirichlet":
+            noise = max_abs(register(iref, rounded_again(imov), cfg, device="cpu").motion,
+                            cpu.motion)
+            info["cpu_rounding_change_px"] = noise
+            tol = max(PARITY_TOL, NOISE_FACTOR * noise)
+        parity_gate(name, gpu, cpu, info, tol)
+    # The gate that admits the fft route as dct_impl="auto"'s resolution:
+    # while it fails, "auto" must resolve to "matmul".
+    auto = RegConfig(method=Method.CURVATURE, niter=(1,)).resolved_dct_impl
+    parity_gate("curvature_fft_vs_matmul", gpu_runs["curvature_fft"],
+                gpu_runs["curvature_matmul"], dict(on="gpu", auto_resolves_to=auto),
+                gated=auto == "fft")
+    for name in ("fluid_spectral", "elastic_dirichlet"):
+        report_sensitive(dev, name)
+    return launches
+
+
+def rounded_again(image: torch.Tensor) -> torch.Tensor:
+    """``image`` scaled by 1 + 1e-7 and rounded to float32 again: every
+    pixel moves by at most half an ulp."""
+    return (image.double() * (1 + 1e-7)).float()
+
+
+def spectral_parity_setup(name: str, niter: int = SPECTRAL_PARITY_NITER, **overrides):
+    """The config and the CPU pair of a spectral parity run (curvature_matmul,
+    curvature_fft or a SPECTRAL_PATHS name) at N_PARITY."""
+    if name.startswith("curvature_"):
+        method, regparams, pair = Method.CURVATURE, CURVATURE, "tiled"
+        overrides["dct_impl"] = name.removeprefix("curvature_")
+    else:
+        _, method, regparams, pair, _, _, _, path_overrides = next(p for p in SPECTRAL_PATHS
+                                                                   if p[0] == name)
+        overrides.update(path_overrides)
+    cfg = RegConfig.from_regparams(method, [niter] * (PARITY_NSCALES + 1), PARITY_NSCALES,
+                                   regparams, NREFINE, **overrides)
+    return (cfg, *pair_on(torch.device("cpu"), pair, N_PARITY))
+
+
+def report_sensitive(dev, name: str) -> None:
+    """A path whose trajectory rounding moves (fluid_spectral,
+    elastic_dirichlet) at SPECTRAL_PARITY_NITER with the default stop, GPU
+    against CPU, beside the CPU run's own change when one pixel of the
+    moving image moves by an ulp and when every pixel is rounded again:
+    reported, not gated."""
+    cfg, iref, imov = spectral_parity_setup(name)
+    cpu = register(iref, imov, cfg, device="cpu")
+    nudged = imov.clone()
+    nudged.view(torch.int32)[N_PARITY // 2, N_PARITY // 3] += 1
+    cpu_ulp = register(iref, nudged, cfg, device="cpu")
+    cpu_rounded = register(iref, rounded_again(imov), cfg, device="cpu")
+    gpu = register(iref.to(dev), imov.to(dev), cfg)
+    torch.cuda.synchronize()
+
+    def counts(r):
+        return [(t.iterations, t.regrids) for t in r.traces]
+
+    emit({"phase": "parity", "path": name, "shape": [N_PARITY, N_PARITY],
+          "niter": SPECTRAL_PARITY_NITER, "gated": False,
+          "max_abs_err_px": max_abs(gpu.motion.cpu(), cpu.motion),
+          "cpu_one_ulp_change_px": max_abs(cpu_ulp.motion, cpu.motion),
+          "cpu_rounding_change_px": max_abs(cpu_rounded.motion, cpu.motion),
+          "iterations_regrids_gpu": counts(gpu), "iterations_regrids_cpu": counts(cpu),
+          "iterations_regrids_cpu_one_ulp": counts(cpu_ulp),
+          "iterations_regrids_cpu_rounded": counts(cpu_rounded)})
+
+
+def parity_gate(name: str, got, want, info: dict, tol: float = PARITY_TOL,
+                gated: bool = True) -> None:
+    """Two registrations' motion within ``tol`` and equal counts; printed
+    only, when not ``gated``."""
+    e = max_abs(got.motion.cpu(), want.motion.cpu())
+    counts = [(t.iterations, t.regrids) for t in got.traces]
+    want_counts = [(t.iterations, t.regrids) for t in want.traces]
+    passed = e <= tol and counts == want_counts
+    emit({"phase": "parity", "path": name, "shape": [N_PARITY, N_PARITY], **info,
+          "tol_px": tol, "max_abs_err_px": e, "iterations_regrids": counts,
+          "iterations_regrids_want": want_counts, "gated": gated, "passed": passed})
+    require(passed or not gated, f"{name}: motion differs by {e} px (gate {tol}) or counts "
+                                 f"differ: {counts} vs {want_counts}")
 
 
 def parity_sp(dev, name: str, family: str, params: dict) -> dict:
@@ -1329,6 +1701,51 @@ def phase_times(dev) -> dict:
     return times
 
 
+def library_bound(name: str, nx: int, ny: int) -> dict:
+    """The least time of one solve of a library route on the card: for the
+    matmul routes their float32 operations over 67 TFLOP/s, for the FFT
+    routes their bytes over 3.35 TB/s, each pass of the transform reading
+    and writing its complex64 planes once (and the input read, the output
+    written, the tables read once); the larger of the two."""
+    planes = 2
+    if name == "curvature_matmul":
+        ops = planes * 2 * (2 * nx * ny * (nx + ny))  # C2x A C2y^T and C3x . C3y^T
+        nbytes = planes * 4 * nx * ny * 2 + 4 * nx * ny + 4 * 2 * (nx * nx + ny * ny)
+    elif name == "curvature_fft":
+        # Four 1D passes (y, x forward; y, x inverse) on complex64 planes.
+        ops = planes * 4 * 5 * nx * ny * np.log2(max(nx, ny))
+        nbytes = planes * nx * ny * (4 + 4 + 4 * 16) + 4 * nx * ny
+    elif name == "navier_lame_periodic":
+        half = nx * (ny // 2 + 1)
+        ops = planes * 2 * 5 * nx * ny * np.log2(max(nx, ny)) + 14 * half
+        # rfft2 and irfft2 two passes each on the half spectrum, then the
+        # 2x2 multiply reading both spectra and three tables, writing two.
+        nbytes = planes * (4 * nx * ny * 2 + 4 * 16 * half) + (2 * 8 + 3 * 4 + 2 * 8) * half
+    else:  # navier_lame_dirichlet: 1 + 12 preconditioner applications of 8 matmuls
+        mx, my = nx - 2, ny - 2
+        ops = 13 * planes * 2 * (2 * mx * my * (mx + my))
+        nbytes = planes * 4 * nx * ny * 2 + 4 * (mx * mx + my * my)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ops": float(ops), "bytes": float(nbytes)}
+
+
+def library_times(dev) -> None:
+    """One solve of each library route, CUDA-event median as the kernels'
+    (curvature by each route and the periodic Navier-Lame solve at 4096^2,
+    the Dirichlet solve at 1024^2), beside its bound."""
+    rng = np.random.default_rng(SEED + 3)
+    for name, shapes in LIBRARY_SHAPES.items():
+        nx, ny = shapes[0]
+        f = torch.from_numpy(rng.standard_normal((2, nx, ny)).astype(np.float32)).to(dev)
+        solve = library_solvers(nx, ny)[name]
+        emit({"phase": "times", "route": name, "shape": [nx, ny], "ms": median_ms(lambda: solve(f)),
+              **library_bound(name, nx, ny)})
+        del f
+
+
 def strip_bound(name: str, nxl: int, ny: int, pad: int,
                 f32_per_s: float = PEAK_F32_PER_S) -> dict:
     """The bound of a strip kernel: its dense kernel's work on the strip's
@@ -1403,6 +1820,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     timed("build", phase_build)
     err = timed("kernels", phase_kernels, dev)
+    timed("library", phase_library, dev)
     main_launches = timed("main", phase_main, dev)
     for path in ("thirion", "diffeomorphic", "fluid", "elastic", "diffusion_tiled"):
         timed("profile", phase_profile, dev, path)
@@ -1410,8 +1828,12 @@ def main() -> None:
         timed("profile", phase_profile, dev, path, DEMONS_PROFILE_NITER)
     for name, *_ in SP_PATHS:
         timed("profile", phase_profile_sp, dev, name)
+    for path in ("curvature", "fluid_spectral"):
+        timed("profile", phase_profile_spectral, dev, path)
+    timed("profile", phase_profile_sp, dev, SP_CURVATURE[0])
     parity_launches = timed("parity", phase_parity, dev)
     times = timed("times", phase_times, dev)
+    timed("times", library_times, dev)
     emit({"phase": "seconds", **seconds})
     launches = {name: sum(run[name] for run in main_launches.values()) for name in KERNELS}
     missing = [name for name in KERNELS if launches[name] == 0]

@@ -6,13 +6,14 @@ there: axis 0 is the reference's "x", channel 0 the displacement along it.
 The entry points (``register``, ``OpticalFlow2d``) run on the GPU unless
 the caller passes ``device="cpu"``; without a CUDA device they raise. On
 CUDA the hand-written kernels (``opticalflow2d_tpu_torch.kernels``) carry
-the run; on the CPU their plain PyTorch versions do. Ported so far: the
-diffusion (Horn-Schunck), Thirion and diffeomorphic demons, elastic
-(Navier-Lame SOR) and viscous-fluid registrations, ``register_phased``,
-the JAX API's huge-grid entry point, and ``parallel``: the mesh and the
-strip-parallel drivers of diffusion, elastic and fluid
-(``make_register_sp`` and its level and sweep factories), one process over
-the strips' devices.
+the run; on the CPU their plain PyTorch versions do; the spectral solvers
+are cuBLAS matmuls and cuFFT transforms at full float32. Ported: the
+diffusion (Horn-Schunck), curvature, Thirion and diffeomorphic demons,
+elastic and viscous-fluid registrations (SOR, periodic FFT or Dirichlet
+DST-I Navier-Lame solves), ``register_phased``, the JAX API's huge-grid
+entry point, and ``parallel``: the mesh and the strip-parallel drivers of
+every family (``make_register_sp`` and its level, step, sweep and
+transform factories), one process over the strips' devices.
 """
 
 from opticalflow2d_tpu_torch.config import (

@@ -4,10 +4,11 @@ Same fields, defaults and regparam packing as ``opticalflow2d_tpu.config``
 (the reference's positional MEX surface, ``WrapperOpticalFlow2d.cpp:23-83``),
 minus the knobs that only existed for the TPU: ``use_pallas`` (on CUDA the
 kernels always run), ``warp_halo``/``warp_halo_outer``/``warp_halo_auto``
-(the CUDA gather is exact for any displacement), ``dct_impl`` and the
-elastic tiling knobs ``pallas_block_elastic``/``pallas_block_k_elastic``
-(the elastic driver blocks at every level with ``min(4, block_k)``
-iterations a pass). ``pallas_block_k`` keeps its meaning as ``block_k``.
+(the CUDA gather is exact for any displacement) and the elastic tiling
+knobs ``pallas_block_elastic``/``pallas_block_k_elastic`` (the elastic
+driver blocks at every level with ``min(4, block_k)`` iterations a pass).
+``pallas_block_k`` keeps its meaning as ``block_k``. ``dct_impl`` takes the
+port's own values, ``"auto"``, ``"matmul"`` and ``"fft"``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,10 @@ import enum
 from typing import Sequence, Tuple
 
 import torch
+
+
+# The curvature DCT's routes (``RegConfig.dct_impl``).
+DCT_IMPLS = ("auto", "matmul", "fft")
 
 
 class Method(enum.IntEnum):
@@ -103,6 +108,10 @@ class RegConfig:
     # (the elastic kernel takes min(4, block_k)). The Logger stop stays
     # exact: a stop inside a block recomputes that block's taken steps.
     block_k: int = 8
+    # Curvature DCT: "matmul" (dense float32 matmuls, bit-closest to the
+    # reference), "fft" (the Makhoul factorization, O(n^2 log n) where the
+    # matmuls are O(n^3)) or "auto" ("matmul"; see resolved_dct_impl).
+    dct_impl: str = "auto"
     # Print every iteration's relative error as the host loop reads it
     # (the reference Logger's verbose mode, src/Logger.cpp:62-79).
     verbose_stream: bool = False
@@ -121,10 +130,23 @@ class RegConfig:
             raise ValueError("kernelwidth must be odd and >= 1")
         if self.block_k < 1:
             raise ValueError("block_k must be >= 1")
+        if self.dct_impl not in DCT_IMPLS:
+            raise ValueError(f"dct_impl must be one of {DCT_IMPLS}, got {self.dct_impl!r}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def resolved_dct_impl(self) -> str:
+        """Resolve ``dct_impl="auto"``. The JAX package gives the bug-compat
+        configs the bit-closest dense transform and the others its fastest
+        accurate one, which here would be ``"fft"``; but the fft route's
+        512^2 curvature registration ends 1.08e-5 px from the matmul
+        route's on an H100, past the 1e-5 gate that admits it as the
+        default (ROADMAP queue C), so ``"auto"`` is ``"matmul"`` for every
+        config. ``"fft"`` stays a choice."""
+        return "matmul" if self.dct_impl == "auto" else self.dct_impl
 
     @staticmethod
     def from_regparams(

@@ -22,19 +22,27 @@ from opticalflow2d_tpu_torch.engine.registration import (
 )
 
 # Knobs of the JAX config that only the TPU needs.
-_TPU_ONLY = ("use_pallas", "warp_halo", "warp_halo_outer", "warp_halo_auto", "dct_impl",
+_TPU_ONLY = ("use_pallas", "warp_halo", "warp_halo_outer", "warp_halo_auto",
              "pallas_block_elastic", "pallas_block_k_elastic")
+
+# JAX's dct_impl values that are MXU precision tiers of its matmul transforms
+# (split-radix or dense at 1, 3 or 6 bf16 passes, solvers/curvature.py:40-64):
+# the same transform is the port's "matmul", at full float32.
+_MXU_TIERS = ("split", "split_high", "split_fast", "matmul_high", "matmul_fast")
 
 
 def config_from_jax(cfg) -> RegConfig:
     """The port's ``RegConfig`` for a JAX ``RegConfig``: the TPU-only knobs
-    are dropped and ``pallas_block_k`` is renamed ``block_k``."""
+    are dropped, ``pallas_block_k`` is renamed ``block_k`` and ``dct_impl``'s
+    MXU tiers become ``"matmul"``."""
     kw = {}
     for f in dataclasses.fields(cfg):
         if f.name in _TPU_ONLY:
             continue
         kw["block_k" if f.name == "pallas_block_k" else f.name] = getattr(cfg, f.name)
     kw["method"] = Method(int(kw["method"]))
+    if kw["dct_impl"] in _MXU_TIERS:
+        kw["dct_impl"] = "matmul"
     kw["accumulation"] = MotionAccumulation(int(kw["accumulation"]))
     kw["compat"] = CompatFlags(**dataclasses.asdict(kw["compat"]))
     return RegConfig(**kw)

@@ -1,7 +1,7 @@
 """Strip-parallel registration: the explicit strip drivers of
 ``opticalflow2d_tpu.parallel.spatial`` (its path 2) for the diffusion,
-elastic, fluid, Thirion and diffeomorphic demons families, ported to
-PyTorch.
+curvature, elastic, fluid, Thirion and diffeomorphic demons families,
+ported to PyTorch.
 
 An image is cut into strips along x, one per device of the mesh's ``"x"``
 axis (``parallel.mesh``). A sharded field is the list of its strips in mesh
@@ -15,6 +15,10 @@ counterparts:
 - ``lax.psum``/``pmax``/``pmin``: the strips' values combined in strip
   order 0..S-1 on the first strip's device, a fixed sequence with no
   atomics, so a Logger stop repeats from run to run.
+- ``lax.all_to_all(..., tiled=True)`` (the curvature transform's
+  transposes): ``_all_to_all``, which cuts every strip into S chunks along
+  one axis and gives strip j the j-th chunks of all strips, concatenated in
+  strip order along the other.
 - ``lax.while_loop``: a host loop that reads what the stop needs once a
   block (diffusion and elastic: the ``[k, 2]`` Logger sums) or once an
   iteration (the per-step route and the demons: the Logger error; fluid:
@@ -26,7 +30,10 @@ passes, the fluid iteration, the demons iteration and every warp and
 compose; on CPU tensors their plain versions do. The per-step diffusion and
 elastic bodies, the gradients, norms, the fluid timestep and Euler update
 and the pyramid are plain PyTorch on every device, as they are jnp in the
-JAX package. The ``use_pallas`` switch and the TPU's tile gates are gone.
+JAX package; the curvature solve is the dense per-axis DCT matmuls
+(cuBLAS, full float32) around the two transposes. The ``use_pallas``
+switch, JAX's ``dct_precision`` (an MXU tier) and the TPU's tile gates are
+gone.
 
 A demons iteration takes one of three routes, chosen from the
 configuration before any launch (``demons_strip_route``), as JAX's
@@ -89,6 +96,7 @@ from opticalflow2d_tpu_torch.kernels.elastic_block import (
 from opticalflow2d_tpu_torch.kernels.fluid_fused import FLUID_PAD, fluid_iter_strip
 from opticalflow2d_tpu_torch.kernels.warp_fused import compose_strip, warp2d_strip
 from opticalflow2d_tpu_torch.ops.conv import convolve2d_clip_rows
+from opticalflow2d_tpu_torch.ops.dct import curvature_eigenvalues, dct_matrix, full_f32
 from opticalflow2d_tpu_torch.ops.grid import partial_x_rows, partial_y
 from opticalflow2d_tpu_torch.ops.reduce import sqrt_rounded
 from opticalflow2d_tpu_torch.ops.resample import box_mean
@@ -104,14 +112,11 @@ Strips = List[torch.Tensor]
 # (warp_fused.py:30), or halo + 1 where the halo is wider.
 _GATHER_PAD = 8
 
-_FAMILIES = ("diffusion", "elastic", "fluid", "thirions", "diffeo")
+_FAMILIES = ("diffusion", "curvature", "elastic", "fluid", "thirions", "diffeo")
 _DEMONS = ("thirions", "diffeo")
 
 
 def _check_family(family: str) -> None:
-    if family == "curvature":
-        raise NotImplementedError(
-            "curvature is not ported yet (ROADMAP queue A, item 12)")
     if family not in _FAMILIES:
         raise ValueError(f"unknown family {family!r}")
 
@@ -159,6 +164,17 @@ def _pmin(vals: Strips) -> torch.Tensor:
     for v in vals[1:]:
         out = torch.minimum(out, v.to(out.device))
     return out
+
+
+def _all_to_all(f: Strips, split_axis: int, concat_axis: int) -> Strips:
+    """``lax.all_to_all(x, split_axis, concat_axis, tiled=True)`` over the
+    strips: strip j gets chunk j of every strip's ``split_axis``, the
+    chunks concatenated in strip order along ``concat_axis``."""
+    n = len(f)
+    chunk = f[0].shape[split_axis] // n
+    return [torch.cat([x.narrow(split_axis, j * chunk, chunk).to(dst.device) for x in f],
+                      dim=concat_axis)
+            for j, dst in enumerate(f)]
 
 
 def _strip_info(f: Strips, s: int):
@@ -394,6 +410,44 @@ def _demons_stepper(family: str, iref_l: Strips, iaux: Strips, p: dict,
 
 # --- family bodies -------------------------------------------------------------
 
+def _curvature_solver_strip(nx_g: int, ny_g: int, alpha: float, tau: float):
+    """Distributed semi-implicit curvature solve ``rhs [c, nxl, ny] strips ->
+    strips``: the y-DCT on each strip, a transpose across strips, the x-DCT,
+    the eigenvalue multiply on each strip's y-slice and the inverse x-DCT,
+    the transpose back, the inverse y-DCT (two transposes in all, JAX's
+    ``_curvature_solve_strip``). Matches ``solvers.curvature``
+    (OpticalFlowCurvature.cpp:144-167) to the transforms' rounding. The
+    eigenvalue table is built on the first call, once a device."""
+    scale = 1.0 / (4.0 * nx_g * ny_g)
+    eigs = {}
+
+    def eig_slice(j: int, n: int, dev):
+        if dev not in eigs:
+            eigs[dev] = curvature_eigenvalues(nx_g, ny_g, alpha, tau, dev)
+        nyl = ny_g // n
+        return eigs[dev][:, j * nyl:(j + 1) * nyl]
+
+    def solve(rhs: Strips) -> Strips:
+        with full_f32():
+            t = [torch.matmul(r, dct_matrix(ny_g, 2, r.device).T) for r in rhs]
+            t = _all_to_all(t, 2, 1)
+            t = [torch.matmul(dct_matrix(nx_g, 2, x.device), x) * eig_slice(j, len(t), x.device)
+                 for j, x in enumerate(t)]
+            t = _all_to_all([torch.matmul(dct_matrix(nx_g, 3, x.device), x) for x in t], 1, 2)
+            return [torch.matmul(x, dct_matrix(ny_g, 3, x.device).T) * scale for x in t]
+
+    return solve
+
+
+def _curvature_step_strip(u: Strips, grad_i: Strips, it_img: Strips, tau: float,
+                          solve: Callable[[Strips], Strips]) -> Strips:
+    """One curvature iteration on the strips: the L-SSD force, the rhs
+    ``u - tau f``, the distributed DCT solve (``_curvature_solver_strip``)."""
+    rhs = [v - tau * (g * (t + v[0] * g[0] + v[1] * g[1])[None])
+           for v, g, t in zip(u, grad_i, it_img)]
+    return solve(rhs)
+
+
 def _diffusion_consts_strip(grad_i: Strips, it_img: Strips, alpha: float) -> Strips:
     return [alpha * alpha + g[0] ** 2 + g[1] ** 2 for g in grad_i]
 
@@ -553,7 +607,9 @@ def _level_local(family: str, u: Strips, iref_l: Strips, imov_l: Strips, level_n
     stop and the final composition. Returns ``(u, iterations, regrids)``.
     Diffusion and elastic take the blocked strip kernels when
     ``block_k > 1`` and the images are float32, else the per-step body;
-    the demons take the route of ``demons_strip_route``."""
+    curvature the per-step body around the distributed DCT solve, which
+    needs ny divisible by the strip count; the demons take the route of
+    ``demons_strip_route``."""
     _check_family(family)
     if family == "fluid":
         return _fluid_level_strip(u, iref_l, imov_l, level_niter, halo, p, convergence_tol)
@@ -564,6 +620,17 @@ def _level_local(family: str, u: Strips, iref_l: Strips, imov_l: Strips, level_n
         return u, it, 0
     grad_i = _gradient_local(iaux)
     it_img = [a - r for a, r in zip(iaux, iref_l)]
+    if family == "curvature":
+        nxl, ny = iref_l[0].shape
+        if ny % len(iref_l):
+            raise ValueError(f"curvature on strips needs ny ({ny}) divisible by the mesh's "
+                             f"x size {len(iref_l)}")
+        tau = p.get("tau", 1.0)
+        solve = _curvature_solver_strip(len(iref_l) * nxl, ny, p["alpha"], tau)
+        u, it = _iterate_level_strip(
+            lambda v: _curvature_step_strip(v, grad_i, it_img, tau, solve), u, level_niter,
+            halo, convergence_tol)
+        return u, it, 0
     bk = int(p.get("block_k", 0))
     blocked = bk > 1 and iref_l[0].dtype == torch.float32
     if family == "diffusion":
@@ -672,18 +739,25 @@ def make_warp2d_sharded(mesh: Mesh, halo: int):
 
 
 def make_variational_level_sharded(mesh: Mesh, method: str, niter: int, halo: int = 2,
-                                   alpha: float = 1.0, mu: float = 1.0, lam: float = 0.0,
-                                   omega: float = 0.66, convergence_tol: float = 0.001,
-                                   reference_stencil: bool = True):
-    """A diffusion or elastic level solve on the strips (the per-step
-    route): derivatives once, then iterations with halo exchange, the Logger
-    stop and the final composition. Returns ``(u [2, nx, ny], iref,
-    imov) -> (u, iterations)``. Curvature is not ported (item 12)."""
-    if method not in ("diffusion", "elastic"):
-        _check_family(method)
+                                   alpha: float = 1.0, tau: float = 1.0, mu: float = 1.0,
+                                   lam: float = 0.0, omega: float = 0.66,
+                                   convergence_tol: float = 0.001,
+                                   reference_stencil: bool = True, grid_shape=None):
+    """A diffusion, elastic or curvature level solve on the strips (the
+    per-step route): derivatives once, then iterations with halo exchange
+    (curvature: the distributed DCT solve, ``tau`` its time step and
+    ``alpha`` its weight), the Logger stop and the final composition.
+    Returns ``(u [2, nx, ny], iref, imov) -> (u, iterations)``. Curvature
+    needs nx and ny divisible by the mesh's x size, checked here when
+    ``grid_shape`` is given, else at the call."""
+    if method not in ("diffusion", "elastic", "curvature"):
         raise ValueError(method)
     devices = _strip_devices(mesh)
-    p = dict(alpha=alpha, mu=mu, lam=lam, omega=omega, reference_stencil=reference_stencil)
+    if method == "curvature" and grid_shape is not None:
+        if grid_shape[0] % len(devices) or grid_shape[1] % len(devices):
+            raise ValueError("curvature grid dims must divide the mesh x size")
+    p = dict(alpha=alpha, tau=tau, mu=mu, lam=lam, omega=omega,
+             reference_stencil=reference_stencil)
 
     def solve(u, iref, imov):
         u, iref, imov = (_split(x, devices) for x in (u, iref, imov))
@@ -758,13 +832,16 @@ def make_fluid_level_sharded(mesh: Mesh, mu: float, lam: float, omega: float, ni
 def make_register_sp(mesh: Mesh, family: str, niter, nscales: int = 1, nrefine: int = 1,
                      halo: int = 2, convergence_tol: float = 0.001, **params):
     """A whole multi-resolution registration on the strips, for
-    ``family`` in {"diffusion", "elastic", "fluid", "thirions", "diffeo"}:
+    ``family`` in {"diffusion", "curvature", "elastic", "fluid", "thirions",
+    "diffeo"}:
     the strip pyramid, the level solves (``_level_local``) and the factor-2
     resampling of the motion between levels, coarse to fine; ``nrefine``
     refinements a level, each a fresh estimate from zero composed into the
     motion.
 
-    ``params`` are the family's: ``alpha`` (diffusion); ``mu``, ``lam``,
+    ``params`` are the family's: ``alpha`` (diffusion, curvature); ``tau``
+    (curvature: every level's ny must divide by the mesh's x size);
+    ``mu``, ``lam``,
     ``omega``, ``reference_stencil`` (elastic, fluid); ``dumax``,
     ``timestep_skip``, ``regrid_threshold`` (fluid); ``block_k``: diffusion
     and elastic run ``block_k`` iterations a kernel pass when it is > 1;

@@ -13,8 +13,12 @@ OpticalFlowFluid.cpp:123-140``):
 
 Steps 1-3 and ``max |R|^2`` are one kernel on CUDA (``kernels.fluid_fused``,
 red-black ordering); the lexicographic ordering runs the plain chain on any
-device. The tail stays on the device as plain tensor ops on 0-d tensors, so
-a step makes no host read. ``maxabs_bug=True`` reproduces the reference's
+device. With a ``spectral_solve`` (``solvers.navier_lame``) the velocity is
+the exact Navier-Lame solution of the current force instead of one sweep,
+and the material derivative and ``max |R|^2`` are plain tensor ops, as in
+JAX, where the fused kernel is not taken either (``fluid.py:55-57``). The
+tail stays on the device as plain tensor ops on 0-d tensors, so a step
+makes no host read. ``maxabs_bug=True`` reproduces the reference's
 ``Motion::maxabs`` defect, which changes the timestep sequence.
 
 ``make_fluid_two_pass_step`` is the same step in two passes that never
@@ -35,8 +39,10 @@ from opticalflow2d_tpu_torch.kernels.fluid_fused import (
     fluid_iter,
     fluid_iter_ref,
     fluid_sweep_max,
+    material_derivative,
 )
-from opticalflow2d_tpu_torch.ops.reduce import sqrt_rounded
+from opticalflow2d_tpu_torch.ops.reduce import motion_max_normsq, sqrt_rounded
+from opticalflow2d_tpu_torch.solvers.base import Derivatives, lssd_force
 
 
 def _timestep(maxsq: torch.Tensor, dumax32: float) -> torch.Tensor:
@@ -47,9 +53,11 @@ def _timestep(maxsq: torch.Tensor, dumax32: float) -> torch.Tensor:
 
 def make_fluid_step(mu: float, lam: float, omega: float, dumax: float = 0.65,
                     timestep_skip: float = 65.0, maxabs_bug: bool = False,
-                    reference_stencil: bool = True, sor_ordering: str = "redblack"):
+                    reference_stencil: bool = True, sor_ordering: str = "redblack",
+                    spectral_solve=None):
     """Build the fluid step ``(u, velocity, g) -> (u, velocity)`` with
-    ``g = stack_derivs(grad_i, it)``."""
+    ``g = stack_derivs(grad_i, it)``; ``spectral_solve(f) -> velocity``
+    replaces the SOR sweep when given."""
     if sor_ordering not in ("redblack", "lexicographic"):
         raise ValueError(f"unknown SOR ordering {sor_ordering!r}")
     dumax32 = float(np.float32(dumax))
@@ -57,7 +65,11 @@ def make_fluid_step(mu: float, lam: float, omega: float, dumax: float = 0.65,
 
     def step(u: torch.Tensor, velocity: torch.Tensor,
              g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        if sor_ordering == "redblack":
+        if spectral_solve is not None:
+            velocity = spectral_solve(lssd_force(Derivatives(g[:2], g[2]), u))
+            r = material_derivative(u, velocity)
+            maxsq = motion_max_normsq(r, maxabs_bug)
+        elif sor_ordering == "redblack":
             velocity, r, maxsq = fluid_iter(u, velocity, g, mu, lam, omega,
                                             reference_stencil, maxabs_bug)
         else:

@@ -591,3 +591,115 @@ def test_demons_strip_kernels_refuse_a_pad_below_the_reach(cuda):
         padded = _strip_inputs(cuda, (100, 77), *fields, pad=need - 1)
         with pytest.raises(ValueError, match="pad of at least"):
             fn(*(p[1] for p in padded), 25, 100, *params, need - 1)
+
+
+# --- the spectral solvers: cuBLAS and cuFFT routes, no kernel of their own ---
+
+SPECTRAL_RTOL = 1e-5  # GPU against CPU, of max |out|: the libraries add in other orders
+
+
+def _rel_gpu_cpu(gpu, cpu) -> float:
+    torch.cuda.synchronize()
+    return float((gpu.cpu() - cpu).abs().max() / cpu.abs().max())
+
+
+class _Tf32On:
+    """The caller's TF32 switches on (cuBLAS and cuDNN) inside the block."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def _spectral_solvers(shape):
+    from opticalflow2d_tpu_torch.solvers.curvature import make_curvature_solve
+    from opticalflow2d_tpu_torch.solvers.navier_lame import (
+        make_dirichlet_navier_lame_solver, make_spectral_navier_lame_solver)
+    return {
+        "curvature_matmul": make_curvature_solve(*shape, 0.1, 1.0, dct_impl="matmul"),
+        "curvature_fft": make_curvature_solve(*shape, 0.1, 1.0, dct_impl="fft"),
+        "navier_lame_periodic": make_spectral_navier_lame_solver(*shape, 0.25, 0.1),
+        "navier_lame_dirichlet": make_dirichlet_navier_lame_solver(*shape, 0.25, 0.1),
+    }
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (1000, 777)])
+@pytest.mark.parametrize("name", ["curvature_matmul", "curvature_fft", "navier_lame_periodic",
+                                  "navier_lame_dirichlet"])
+def test_spectral_solve_gpu_matches_cpu_and_ignores_tf32(cuda, shape, name):
+    f = torch.from_numpy(np.random.default_rng(0).normal(0, 1, (2,) + shape)
+                         .astype(np.float32))
+    solve = _spectral_solvers(shape)[name]
+    cpu = solve(f)
+    gpu = solve(f.to(cuda))
+    assert gpu.device == cuda and gpu.dtype == torch.float32
+    e = _rel_gpu_cpu(gpu, cpu)
+    if e > SPECTRAL_RTOL:
+        # The Dirichlet system's condition grows as n^2: past 1e-5, hold the
+        # card to the CPU solve's own change under a rounding of its input.
+        noise = float((solve((f.double() * (1 + 1e-7)).float()) - cpu).abs().max()
+                      / cpu.abs().max())
+        assert e <= 3 * noise, (e, noise)
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    with _Tf32On():
+        tf32 = solve(f.to(cuda))
+        assert torch.backends.cuda.matmul.allow_tf32  # the caller's setting, restored
+    assert torch.equal(tf32, gpu)
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == before
+
+
+def test_fft_route_matches_matmul_route_on_the_gpu(cuda):
+    f = torch.from_numpy(np.random.default_rng(1).normal(0, 1, (2, 512, 384))
+                         .astype(np.float32)).to(cuda)
+    solvers = _spectral_solvers((512, 384))
+    want = solvers["curvature_matmul"](f)
+    got = solvers["curvature_fft"](f)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= SPECTRAL_RTOL
+
+
+# Curvature and the periodic elastic solve run to their stop. The spectral
+# fluid trajectory moves by 1e-6 px on one device alone when one input pixel
+# moves by an ulp, and more past tens of iterations, so it runs 5 iterations
+# a level; the Dirichlet solve's float32 noise can move a Logger stop, so it
+# runs a fixed 12 (chip_smoke.py's FLUID_SPECTRAL_PARITY_NITER and
+# DIRICHLET_PARITY).
+@pytest.mark.parametrize("method,extra,niter,want", [
+    (Method.CURVATURE, dict(alpha=0.1, tau=1.0, dct_impl="matmul"), (40, 30), ["logger_norms"]),
+    (Method.CURVATURE, dict(alpha=0.1, tau=1.0, dct_impl="fft"), (40, 30), ["logger_norms"]),
+    (Method.ELASTIC, dict(mu=0.5, lam=0.0, navier_lame_solver="spectral"), (40, 30),
+     ["logger_norms"]),
+    (Method.ELASTIC, dict(mu=0.5, lam=0.0, navier_lame_solver="spectral_dirichlet",
+                          convergence_tol=0.0), (12, 12), ["logger_norms"]),
+    (Method.FLUID, dict(mu=0.25, lam=0.0, navier_lame_solver="spectral"), (5, 5),
+     ["fluid_metrics"]),
+])
+def test_register_spectral_gpu_matches_cpu(cuda, method, extra, niter, want):
+    iref, imov, _, _ = _inputs(96, 64, cuda)
+    cfg = RegConfig(method=method, niter=niter, nscales=1, nrefine=2, **extra)
+    cpu = register(iref, imov, cfg, device="cpu")
+    kernels.reset_launches()
+    gpu = register(iref, imov, cfg)
+    assert [t.iterations for t in gpu.traces] == [t.iterations for t in cpu.traces]
+    assert [t.regrids for t in gpu.traces] == [t.regrids for t in cpu.traces]
+    assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
+    assert all(kernels.LAUNCHES[name] > 0 for name in want + ["warp2d", "compose"]), \
+        kernels.LAUNCHES
+    assert sum(kernels.LAUNCHES[k] for k in ("elastic_block", "fluid_iter", "fluid_sweep_max",
+                                             "diffusion_block")) == 0, kernels.LAUNCHES
+
+
+def test_register_sp_curvature_gpu_matches_cpu(cuda):
+    iref, imov, _, _ = _inputs(96, 64, cuda)
+    kw = dict(niter=[30, 20], nscales=1, nrefine=2, halo=4, alpha=0.1, tau=1.0)
+    cpu = make_register_sp(make_mesh(x=4, devices=["cpu"] * 4), "curvature", **kw)(
+        iref.cpu(), imov.cpu())
+    kernels.reset_launches()
+    gpu = make_register_sp(make_mesh(x=4, devices=[cuda] * 4), "curvature", **kw)(iref, imov)
+    assert gpu.iterations == cpu.iterations
+    assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
+    assert kernels.LAUNCHES["warp2d_strip"] > 0 and kernels.LAUNCHES["compose_strip"] > 0

@@ -157,15 +157,6 @@ def test_session_matches_jax():
     assert_close(ts.warp(imov), js.warp(imov), 1e-5)
 
 
-@pytest.mark.parametrize("method", [T.Method.ELASTIC, T.Method.FLUID])
-@pytest.mark.parametrize("solver", ["spectral", "spectral_dirichlet"])
-def test_spectral_navier_lame_is_not_ported_yet(method, solver):
-    iref, imov = make_pair(16, 16)
-    cfg = T.RegConfig(method=method, niter=(3,), navier_lame_solver=solver)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        T.register(iref, imov, cfg, device="cpu")
-
-
 @pytest.mark.parametrize("method", [J.Method.ELASTIC, J.Method.FLUID])
 def test_config_from_jax_elastic_and_fluid(method):
     jcfg = J.RegConfig.from_regparams(

@@ -151,14 +151,6 @@ def test_register_validates_like_jax():
                    device="cpu")
 
 
-@pytest.mark.parametrize("method", [T.Method.CURVATURE])
-def test_other_families_are_not_ported_yet(method):
-    iref, imov = make_pair(16, 16)
-    cfg = T.RegConfig(method=method, niter=(3,))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 12"):
-        T.register(iref, imov, cfg, device="cpu")
-
-
 def test_config_from_jax_round_trip():
     jcfg = J.RegConfig.from_regparams(
         J.Method.DIFFUSION, [30, 20, 10], 2, [0.25], 3, pallas_block_k=4,
@@ -173,7 +165,7 @@ def test_config_from_jax_round_trip():
     jnames = {f.name for f in dataclasses.fields(jcfg)}
     tnames = {f.name for f in dataclasses.fields(tcfg)}
     assert jnames - tnames == {"use_pallas", "warp_halo", "warp_halo_outer",
-                               "warp_halo_auto", "dct_impl", "pallas_block_k",
+                               "warp_halo_auto", "pallas_block_k",
                                "pallas_block_elastic", "pallas_block_k_elastic"}
     assert config_from_jax(J.RegConfig(method=J.Method.ELASTIC, niter=(4,))) == \
         T.RegConfig(method=T.Method.ELASTIC, niter=(4,))

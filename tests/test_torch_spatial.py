@@ -15,26 +15,32 @@ strips of 4 rows, below the TPU's 8-row tile), the two round a step apart
 by an ulp. The demons runs take parameters under which those ulps stay
 small (see ``DEMONS``), one on each route of the strip iteration.
 
-Tolerances: sweeps 1e-6 max-abs; registrations 1e-5 px with equal
-iteration counts at every (level, refinement), and equal regrid counts
-where JAX reports them.
+Tolerances: sweeps and the curvature step 1e-6 max-abs; the strip DCT
+2e-6 of max |out| (the matmuls add in another order); registrations 1e-5
+px with equal iteration counts at every (level, refinement), and equal
+regrid counts where JAX reports them.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax import lax
 from jax.experimental.pallas import tpu as pltpu
 
 import opticalflow2d_tpu_torch as T
 from _torch_helpers import assert_close, npy, tiled_pair, tt
+from opticalflow2d_tpu.parallel import dct_dist as j_dd
 from opticalflow2d_tpu.parallel import spatial as j_sp
 from opticalflow2d_tpu.parallel.mesh import make_mesh as j_make_mesh
+from opticalflow2d_tpu_torch.ops import dct as TD
 from opticalflow2d_tpu_torch.ops.warp import expmap_nsq
 from opticalflow2d_tpu_torch.parallel import (
-    make_demons_level_sharded, make_demons_step_sharded, make_diffusion_sweeps_sharded,
-    make_fluid_level_sharded, make_mesh, make_register_demons_sp, make_register_sp,
-    make_sor_sweeps_sharded, make_variational_level_sharded, make_warp2d_sharded, spatial)
+    make_curvature_step_sharded, make_dct2_sharded, make_demons_level_sharded,
+    make_demons_step_sharded, make_diffusion_sweeps_sharded, make_fluid_level_sharded,
+    make_mesh, make_register_demons_sp, make_register_sp, make_sor_sweeps_sharded,
+    make_variational_level_sharded, make_warp2d_sharded, spatial)
+from opticalflow2d_tpu_torch.solvers import make_curvature_step
 from opticalflow2d_tpu_torch.solvers.base import derivatives
 
 SHAPE = (64, 48)
@@ -75,7 +81,8 @@ def test_sor_sweeps_sharded_matches_jax(meshes):
 
 
 @pytest.mark.parametrize("method,kw", [("diffusion", dict(alpha=0.5)),
-                                       ("elastic", dict(mu=0.5, lam=0.0))])
+                                       ("elastic", dict(mu=0.5, lam=0.0)),
+                                       ("curvature", dict(alpha=0.1, tau=1.0))])
 def test_variational_level_sharded_matches_jax(meshes, pair, method, kw):
     jmesh, mesh = meshes
     u0 = np.zeros((2,) + SHAPE, np.float32)
@@ -181,6 +188,9 @@ SP_CASES = {
                                          **DEMONS["diffeo_two_kernel"][1]), False),
     "diffeo_op_chain": ("diffeo", dict(niter=[8, 6], halo=4, **DEMONS["diffeo_op_chain"][1]),
                         False),
+    "curvature": ("curvature", dict(niter=[20, 15], halo=4, alpha=0.1, tau=1.0), False),
+    "curvature_nrefine2": ("curvature", dict(niter=[12, 10], nrefine=2, halo=4, alpha=0.1),
+                           False),
 }
 
 
@@ -212,6 +222,9 @@ def test_register_sp_matches_jax(meshes, pair, name):
      dict(method=T.Method.THIRIONS_DEMONS, **DEMONS["thirion_onepass"][1])),
     ("diffeo", DEMONS["diffeo_two_kernel"][1],
      dict(method=T.Method.DIFFEOMORPHIC_DEMONS, **DEMONS["diffeo_two_kernel"][1])),
+    # The strips keep the dense per-axis transform: dct_impl="matmul".
+    ("curvature", dict(alpha=0.1, tau=1.0),
+     dict(method=T.Method.CURVATURE, alpha=0.1, tau=1.0, dct_impl="matmul")),
 ])
 def test_register_sp_matches_dense_register(meshes, pair, family, kw, cfg_kw):
     """Strips against the port's own dense driver, as the JAX package's SP
@@ -228,6 +241,45 @@ def test_register_sp_matches_dense_register(meshes, pair, family, kw, cfg_kw):
     assert_close(got.motion, want.motion, MOTION_TOL)
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dct2_sharded_matches_jax(meshes, inverse):
+    jmesh, mesh = meshes
+    a = np.random.default_rng(6).standard_normal(SHAPE).astype(np.float32)
+    want = j_dd.make_dct2_sharded(jmesh, *SHAPE, inverse=inverse)(jnp.asarray(a))
+    got = make_dct2_sharded(mesh, *SHAPE, inverse=inverse)(tt(a))
+    assert_close(got, want, 2e-6 * float(np.abs(np.asarray(want)).max()))
+    dense = (TD.idct2_fftw if inverse else TD.dct2_fftw)(tt(a))
+    assert_close(got, dense, 2e-6 * float(dense.abs().max()))
+
+
+def test_curvature_step_sharded_matches_jax(meshes, pair):
+    """JAX's step at HIGHEST, the dense per-axis transform at full float32."""
+    jmesh, mesh = meshes
+    d = derivatives(*map(tt, pair[::-1]))
+    u = (1.5 * np.tanh(np.random.default_rng(7).standard_normal((2,) + SHAPE))).astype(
+        np.float32)
+    args = (u, npy(d.grad_i), npy(d.it))
+    want = j_dd.make_curvature_step_sharded(jmesh, *SHAPE, 0.1, 1.0,
+                                            precision=lax.Precision.HIGHEST)(*_j(*args))
+    got = make_curvature_step_sharded(mesh, *SHAPE, 0.1, 1.0)(*map(tt, args))
+    assert_close(got, want, 1e-6)
+    dense = make_curvature_step(*SHAPE, 0.1, 1.0, dct_impl="matmul")(tt(u), d)
+    assert_close(got, dense, 1e-6)
+
+
+def test_curvature_strips_need_ny_divisible_by_the_strips(meshes):
+    _, mesh = meshes
+    with pytest.raises(ValueError, match="ny \\(44\\) divisible"):
+        make_register_sp(mesh, "curvature", niter=[3], nscales=0, alpha=0.1)(
+            *map(tt, tiled_pair(64, 44)))
+    with pytest.raises(ValueError, match="divide the mesh"):
+        make_variational_level_sharded(mesh, "curvature", niter=3, grid_shape=(64, 44))
+    for factory in (make_dct2_sharded, make_curvature_step_sharded):
+        with pytest.raises(ValueError, match="divisible"):
+            factory(mesh, 64, 44, *((0.1, 1.0) if factory is make_curvature_step_sharded
+                                    else ()))
+
+
 def test_register_demons_sp_matches_jax(meshes, pair):
     """The Thirion wrapper (the K5 route at nrefine 1), at the JAX package's
     default kernelwidth."""
@@ -241,14 +293,12 @@ def test_register_demons_sp_matches_jax(meshes, pair):
 
 
 def test_strip_drivers_refuse_what_is_not_ported(meshes, pair):
-    """Curvature and a data axis still raise; the demons families run."""
+    """A data axis still raises; the demons families run."""
     _, mesh = meshes
     for family in ("thirions", "diffeo"):
         got = make_register_sp(mesh, family, niter=[2], nscales=0, **DEMONS["thirion_onepass"][1])(
             *map(tt, pair))
         assert got.iterations == (2,)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_variational_level_sharded(mesh, "curvature", niter=4)
     with pytest.raises(ValueError, match="devices="):
         make_mesh(x=4, devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="item 15"):
