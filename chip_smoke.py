@@ -50,7 +50,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    under a rounding of its input, the float32 noise of the ill-conditioned
    Dirichlet system) and run again with the caller's TF32 switches on
    (cuBLAS and cuDNN), which must give the same bits and be restored; the
-   fft route against the matmul route on the card.
+   fft route against the matmul route on the card. Then B1 (k = 8 and 3),
+   B2, B3 (warp and compose) and B4 batched over 3 pairs of 1000x777 and of
+   1024^2, all listed and the shuffled subset (2, 0): each pair bit-equal
+   to its own single-pair launch and to the plain version (B4's sums bit
+   for bit against the single launch, within 1e-5 relative of the plain
+   version).
 3. The main paths through the session API at 4096^2, each with the launch
    counts set to 0 just before it and read just after:
    a. diffusion on a pair of three blobs, 5 levels (SSD reduction >= 0.9,
@@ -97,6 +102,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
       level at most. sp_curvature: make_register_sp on 4 strips of the
       tiled pair (halo 5, the same cap; the strip warp and compose),
       beside the dense curvature run.
+   i. the batch paths (parallel.register_batch, BATCH_PATHS): 16 pairs of
+      the blob pair at 1024^2 (each shift's components scaled by factors
+      in [0.5, 1.5] from the seed; nscales 2) by diffusion, 4 pairs of the tiled pair at
+      1024^2 by elastic [0.5, 0] and curvature (matmul route, 100
+      iterations a level), 4 at 512^2 by fluid (impl "auto", which must
+      resolve to map); each run by the lockstep driver (impl "vmap", B1-B4
+      batched and B6 a pair) and by map, and a Python loop of register as
+      the reference: every pair's counts equal to its register's and its
+      motion bit-equal, the diffusion pairs
+      stopping at two or more count vectors, each with SSD reduction >=
+      0.9; wall time, registrations a second, peak memory and host reads
+      of each, beside the card's name and power limit.
    Every path needs SSD reduction >= 0.9 and a finite motion; the phase
    prints iterations, regrids, wall time, host reads per level and
    launches. The tiled pair keeps its sigma = 6 px blobs at every size;
@@ -139,7 +156,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    4096^2, the Dirichlet solve at 1024^2) beside its bound: operations
    over the float32 rate for the matmul routes, bytes over the memory rate
    (each pass of the transform reading and writing its planes) for the
-   FFT routes.
+   FFT routes. And the batched kernels on 16 pairs of 1024^2, each beside
+   its plain version and 16 single-pair launches.
+7. Utilities: register_resumable on the 4096^2 blob diffusion run (3a),
+   stopped after scale 2 and resumed, bit-equal to register with equal
+   counts; utils.kernel_timer on B1 at 4096^2 beside phase 6's median;
+   debug_nans raising on an input with one NaN pixel.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -148,8 +170,10 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -166,29 +190,34 @@ from opticalflow2d_tpu_torch.kernels.demons_onepass import (
 from opticalflow2d_tpu_torch.kernels import demons_fused as k_df
 from opticalflow2d_tpu_torch.kernels import demons_onepass as k_op
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (
-    diffusion_block, diffusion_block_ref, stack_derivs)
+    diffusion_block, diffusion_block_batch, diffusion_block_batch_ref, diffusion_block_ref,
+    stack_derivs)
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
-    diffusion_step_fused, diffusion_step_ref)
+    diffusion_step_batch, diffusion_step_batch_ref, diffusion_step_fused, diffusion_step_ref)
 from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block, elastic_block_ref
 from opticalflow2d_tpu_torch.kernels.fluid_fused import (
     fluid_euler, fluid_euler_ref, fluid_iter, fluid_iter_ref, fluid_sweep_max,
     fluid_sweep_max_ref)
 from opticalflow2d_tpu_torch.kernels.logger_norms import (
-    fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_ref)
+    fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_batch, logger_norms_batch_ref,
+    logger_norms_ref)
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
-    compose, compose_ref, warp2d, warp2d_ref)
+    compose, compose_batch, compose_batch_ref, compose_ref, warp2d, warp2d_batch,
+    warp2d_batch_ref, warp2d_ref)
 from opticalflow2d_tpu_torch.kernels import diffusion_block as k_diff
 from opticalflow2d_tpu_torch.kernels import elastic_block as k_el
 from opticalflow2d_tpu_torch.kernels import fluid_fused as k_fl
 from opticalflow2d_tpu_torch.kernels import warp_fused as k_wf
 from opticalflow2d_tpu_torch.metrics import ssd_reduction
-from opticalflow2d_tpu_torch.parallel import make_mesh, make_register_sp, spatial
+from opticalflow2d_tpu_torch.parallel import make_mesh, make_register_sp, register_batch, spatial
+from opticalflow2d_tpu_torch.parallel.batch import _resolve_impl
 from opticalflow2d_tpu_torch.solvers.base import derivatives
 from opticalflow2d_tpu_torch.solvers.demons import demons_route
 from opticalflow2d_tpu_torch.solvers.curvature import make_curvature_solve
 from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
 from opticalflow2d_tpu_torch.solvers.navier_lame import (
     make_dirichlet_navier_lame_solver, make_spectral_navier_lame_solver)
+from opticalflow2d_tpu_torch.utils import debug_nans, kernel_timer, register_resumable
 
 FIELD_TOL = 1e-6      # kernel vs plain version, max-abs
 SUMS_RTOL = 1e-5      # Logger sums, relative
@@ -307,6 +336,37 @@ NOT_ON_SPECTRAL = ("diffusion_block", "diffusion_step", "elastic_block", "fluid_
 SP_CURVATURE = ("sp_curvature", "curvature", dict(alpha=CURVATURE[0], tau=CURVATURE[1],
                                                   halo=SP_HALO))
 
+# The batch paths (parallel.register_batch): BATCH pairs of N_BATCH^2, the
+# largest 1024^2 batch of the JAX package's serving study
+# (benchmarks/r8_serving_fix.py:38-40), each pair's shift components scaled
+# by factors in [0.5, 1.5] from the seed, so that the pairs stop at
+# different counts (batch_stack says why both);
+# (name, method, regparams, pair, n, pairs, nscales, niter, config
+# overrides, impls, tolerance in px against each pair's own register: 0,
+# bit for bit; the lockstep curvature solves each pair apart, since one
+# cuBLAS matmul over the stack rounded apart by 7.9e-5 px, PERF.md).
+N_BATCH = 1024
+BATCH = 16
+BATCH_PATHS = (
+    ("batch_diffusion", Method.DIFFUSION, [ALPHA], "blob", N_BATCH, BATCH, 2, NITER, {},
+     ("vmap", "map"), 0.0),
+    ("batch_elastic", Method.ELASTIC, [0.5, 0.0], "tiled", N_BATCH, 4, TILED_NSCALES, NITER,
+     {}, ("vmap", "map"), 0.0),
+    ("batch_curvature", Method.CURVATURE, CURVATURE, "tiled", N_BATCH, 4, TILED_NSCALES,
+     CURVATURE_NITER, {"dct_impl": "matmul"}, ("vmap", "map"), 0.0),
+    ("batch_fluid", Method.FLUID, [0.25, 0.0], "tiled", N_PARITY, 4, TILED_NSCALES, NITER, {},
+     ("auto",), 0.0),
+)
+# The batched kernels' checks: 3 pairs of these shapes, all listed and a
+# shuffled subset.
+BATCH_KERNEL_SHAPES = ((1000, 777), (1024, 1024))
+BATCH_KERNEL_PAIRS = ([0, 1, 2], [2, 0])
+BATCH_KS = (8, 3)
+# The batched kernels and the single-pair kernels whose work they repeat per pair.
+BATCHED = {"diffusion_block_batch": "diffusion_block", "diffusion_step_batch": "diffusion_step",
+           "warp2d_batch": "warp2d", "compose_batch": "compose",
+           "logger_norms_batch": "logger_norms"}
+
 # The main paths: (name, method, regparams, pair, nscales). DIFFUSION_TILED
 # is the dense diffusion run beside sp_diffusion, on its pair.
 PATHS = (
@@ -398,6 +458,16 @@ KERNELS = {
                                     "opticalflow2d_tpu/pallas_kernels/demons_fused.py:401"),
     "compose_smooth_strip": ("cuda", "opticalflow2d_tpu_torch/csrc/demons_fused.cu",
                              "opticalflow2d_tpu/pallas_kernels/demons_fused.py:481"),
+    "diffusion_block_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/diffusion_block.cu",
+                              "opticalflow2d_tpu/pallas_kernels/diffusion_block.py:223"),
+    "diffusion_step_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/diffusion_step.cu",
+                             "opticalflow2d_tpu/pallas_kernels/diffusion_fused.py:106"),
+    "warp2d_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/warp_gather.cu",
+                     "opticalflow2d_tpu/pallas_kernels/warp_fused.py:173"),
+    "compose_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/warp_gather.cu",
+                      "opticalflow2d_tpu/pallas_kernels/warp_fused.py:173"),
+    "logger_norms_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/logger_norms.cu",
+                           "opticalflow2d_tpu/pallas_kernels/logger_norms.py:178"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
@@ -452,6 +522,10 @@ OPS = {"diffusion_block": 8 * 33, "diffusion_step": 21, "warp2d": 25, "compose":
        "fluid_sweep_max": 58, "fluid_euler": 20}
 
 
+PLANES.update({name: PLANES[single] for name, single in BATCHED.items()})
+OPS.update({name: OPS[single] for name, single in BATCHED.items()})
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -461,9 +535,9 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def blob_pair(n: int):
+def blob_pair(n: int, scale=(1.0, 1.0)):
     """Three Gaussian blobs scaled to an n x n image; the moving image is
-    shifted by (1.5, -0.8) * n / 256 px."""
+    shifted by (1.5 * scale[0], -0.8 * scale[1]) * n / 256 px."""
     xs = np.arange(n, dtype=np.float64)[:, None]
     ys = np.arange(n, dtype=np.float64)[None, :]
     blobs = [((.4, .5), .125, 1.0), ((.65, .3), .083, .7), ((.3, .75), .104, .5)]
@@ -475,12 +549,13 @@ def blob_pair(n: int):
                             / (2 * (s * n) ** 2))
         return g.astype(np.float32)
 
-    return img(0.0, 0.0), img(1.5 * n / 256, -0.8 * n / 256)
+    return img(0.0, 0.0), img(1.5 * scale[0] * n / 256, -0.8 * scale[1] * n / 256)
 
 
-def tiled_pair(n: int, dev=torch.device("cpu")):
+def tiled_pair(n: int, dev=torch.device("cpu"), scale=(1.0, 1.0)):
     """Gaussian blobs of sigma = 6 px on a 32 px grid, amplitudes 0.3-1.0
-    from the seed; the moving image is shifted by (1.5, -0.8) px. Unlike
+    from the seed; the moving image is shifted by (1.5 * scale[0], -0.8 *
+    scale[1]) px. Unlike
     ``blob_pair``, the features keep their size at every n, so the image
     gradients, the force and the fluid increment do too. The sum of the
     blobs is separable per blob: ``Gx^T A Gy``, computed in float64 on
@@ -497,7 +572,7 @@ def tiled_pair(n: int, dev=torch.device("cpu")):
         gy = torch.exp(-((coords[None, :] - oy - centers[:, None]) ** 2) / (2 * sigma ** 2))
         return (gx.T @ amp @ gy).float()
 
-    return img(0.0, 0.0), img(1.5, -0.8)
+    return img(0.0, 0.0), img(1.5 * scale[0], -0.8 * scale[1])
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -578,7 +653,228 @@ def phase_kernels(dev) -> dict:
     check_elastic_strips(err, dev, g, small)
     check_diffusion_strips(err, dev, small, g)
     check_fluid_strips(err, dev, small, fluid_velocity(small), g)
+    for nx, ny in BATCH_KERNEL_SHAPES:
+        check_batch_kernels(err, dev, gen, nx, ny)
     return err
+
+
+def batch_stack(dev, pair: str, n: int, count: int, nx: int | None = None,
+                ny: int | None = None):
+    """``count`` pairs of ``pair`` at n^2 (cropped to nx x ny), each
+    shift's two components scaled by factors in [0.5, 1.5] from the seed:
+    ``[count, nx, ny]`` stacks on ``dev`` and the factors. Both components
+    are scaled apart: one factor for both would leave every relative
+    Logger error, and so every count, as it is (the linearized problem is
+    linear in the shift)."""
+    factors = np.random.default_rng(SEED).uniform(0.5, 1.5, (count, 2))
+    if pair == "tiled":
+        pairs = [tiled_pair(n, dev, f) for f in factors]
+    else:
+        pairs = [tuple(torch.from_numpy(x).to(dev) for x in blob_pair(n, f)) for f in factors]
+    nx, ny = nx or n, ny or n
+    return (torch.stack([p[0][:nx, :ny] for p in pairs]).contiguous(),
+            torch.stack([p[1][:nx, :ny] for p in pairs]).contiguous(), factors.tolist())
+
+
+def check_pairs(err: dict, name: str, shape, pairs, got, single, plain, sums=None,
+                **info) -> None:
+    """Hold a batched launch's listed pairs against their own single-pair
+    launches (fields and Logger sums bit for bit) and their plain versions
+    (fields bit for bit, sums within SUMS_RTOL); ``got``, ``single`` and
+    ``plain`` hold the fields, ``sums`` is ``(batched, single, plain)``, one
+    entry a listed pair each. B4 has sums and no field (``got`` empty)."""
+    torch.cuda.synchronize()
+    e_single = max((max_abs(a, b) for a, b in zip(got, single)), default=0.0)
+    e_plain = max((max_abs(a, b) for a, b in zip(got, plain)), default=0.0)
+    rec = {"phase": "kernels", "kernel": name, "shape": list(shape), "pairs": pairs, **info,
+           "max_abs_err": e_plain, "max_abs_err_single": e_single}
+    ok = e_single == 0.0 and e_plain == 0.0
+    if sums is not None:
+        got_s, single_s, plain_s = sums
+        rec["sums_equal_single"] = all(torch.equal(a, b) for a, b in zip(got_s, single_s))
+        rec["sums_rel_err"] = max(rel_err(a, b) for a, b in zip(got_s, plain_s))
+        if not got:  # the sums are the output: max_abs_err is theirs, as for B4
+            e_plain = rec["max_abs_err"] = max(max_abs(a, b) for a, b in zip(got_s, plain_s))
+        ok = ok and rec["sums_equal_single"] and rec["sums_rel_err"] <= SUMS_RTOL
+    emit(rec)
+    require(ok, f"{name} {shape} pairs {pairs} {info}: {rec}")
+    err[name] = max(err[name], e_plain)
+
+
+def check_batch_kernels(err: dict, dev, gen: torch.Generator, nx: int, ny: int) -> None:
+    """B1 (k = 8 and 3), B2, B3 (warp, compose) and B4 batched on
+    BATCH_KERNEL_PAIRS pairs of blob pairs shifted apart: every pair, and a
+    shuffled subset, each equal to its own single-pair launch and to the
+    plain version (B4's sums: bit for bit against the single launch,
+    within SUMS_RTOL of the plain version)."""
+    count = len(BATCH_KERNEL_PAIRS[0])
+    irefs, imovs, _ = batch_stack(dev, "blob", max(nx, ny), count, nx, ny)
+    d = derivatives(irefs, imovs)
+    g = stack_derivs(d.grad_i, d.it)
+    del d
+    fields = [demons_fields(dev, gen, nx, ny) for _ in range(count)]
+    u = torch.stack([f[0] for f in fields])
+    disp = torch.stack([f[1] for f in fields])
+    u_total = torch.stack([f[2] for f in fields])
+    shape = (count, nx, ny)
+    for pairs in BATCH_KERNEL_PAIRS:
+        for k in BATCH_KS:
+            out, sums = diffusion_block_batch(u, g, ALPHA, k, pairs)
+            ref, sums_ref = diffusion_block_batch_ref(u, g, ALPHA, k, pairs)
+            singles = [diffusion_block(u[p], g[p], ALPHA, k) for p in pairs]
+            check_pairs(err, "diffusion_block_batch", shape, pairs, [out[p] for p in pairs],
+                        [s[0] for s in singles], [ref[p] for p in pairs],
+                        (list(sums), [s[1] for s in singles], list(sums_ref)), k=k)
+        out = diffusion_step_batch(u, g, ALPHA, pairs)
+        ref = diffusion_step_batch_ref(u, g, ALPHA, pairs)
+        check_pairs(err, "diffusion_step_batch", shape, pairs, [out[p] for p in pairs],
+                    [diffusion_step_fused(u[p], g[p, :2], g[p, 2], ALPHA) for p in pairs],
+                    [ref[p] for p in pairs])
+        out = warp2d_batch(imovs, disp, pairs)
+        ref = warp2d_batch_ref(imovs, disp, pairs)
+        check_pairs(err, "warp2d_batch", shape, pairs, [out[p] for p in pairs],
+                    [warp2d(imovs[p], disp[p]) for p in pairs], [ref[p] for p in pairs],
+                    max_disp=float(disp.abs().max()))
+        out = compose_batch(u_total, disp, pairs)
+        ref = compose_batch_ref(u_total, disp, pairs)
+        check_pairs(err, "compose_batch", shape, pairs, [out[p] for p in pairs],
+                    [compose(u_total[p], disp[p]) for p in pairs], [ref[p] for p in pairs])
+        sums = logger_norms_batch(u_total, disp, pairs)
+        single = [logger_norms(u_total[p], disp[p]) for p in pairs]
+        plain = logger_norms_batch_ref(u_total, disp, pairs)
+        check_pairs(err, "logger_norms_batch", shape, pairs, [], [], [],
+                    (list(sums), single, list(plain)))
+
+
+def batch_host_reads(method: Method, regparams, res) -> dict:
+    """Host reads of a batch run: the lockstep driver reads once a block for
+    all its active pairs, as many blocks as its slowest pair takes in each
+    (level, refinement); map and the loop once a block a pair."""
+    counts = [t.iterations.tolist() for t in res.traces]
+    lockstep = sum(host_reads(method, regparams, max(c)) for c in counts)
+    per_pair = sum(host_reads(method, regparams, n) for c in counts for n in c)
+    return {"lockstep": lockstep, "per_pair": per_pair}
+
+
+def drive_batch(dev, smi: str, name: str, method: Method, regparams, pair: str, n: int,
+                count: int, nscales: int, niter: int, overrides: dict, impls, tol: float) -> dict:
+    """One batch path: a Python loop of ``register`` over the pairs (the
+    reference), then ``register_batch`` by each impl, each with the launch
+    counts set to 0 just before it and read just after; every pair's counts
+    equal to its own register's and its motion within ``tol`` px (0: bit
+    for bit). Prints wall time, registrations a second, peak memory and
+    host reads beside the card's name and power limit."""
+    cfg = RegConfig.from_regparams(method, [niter] * (nscales + 1), nscales, regparams, NREFINE,
+                                   **overrides)
+    irefs, imovs, factors = batch_stack(dev, pair, n, count)
+
+    def timed(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    loop, wall, _ = timed(lambda: [register(irefs[i], imovs[i], cfg) for i in range(count)])
+    want = [[t.iterations for t in r.traces] for r in loop]
+    ssd = [float(ssd_reduction(irefs[i], imovs[i], loop[i].motion)) for i in range(count)]
+    reads = sum(host_reads(method, regparams, c) for w in want for c in w)
+    emit({"phase": "batch", "path": name, "impl": "loop", "card": smi, "pairs": count,
+          "shape": [n, n], "wall_s": wall, "registrations_per_s": count / wall,
+          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+          "host_reads": reads, "pairs_per_host_read": 1.0, "iterations": want,
+          "ssd_reduction": ssd, "shift_factors": factors})
+    distinct = len({tuple(w) for w in want})
+    if name == "batch_diffusion":
+        require(distinct >= 2, f"{name}: every pair stopped at the same counts {want[0]}")
+        require(min(ssd) >= SSD_BAR, f"{name}: SSD reduction {min(ssd)} < {SSD_BAR}")
+    launches = {}
+    for impl in impls:
+        res, wall, launched = timed(lambda: register_batch(irefs, imovs, cfg, impl=impl))
+        launches[f"{name}_{impl}"] = launched
+        got = [[int(t.iterations[i]) for t in res.traces] for i in range(count)]
+        err = max(max_abs(res.motion[i], loop[i].motion) for i in range(count))
+        reads = batch_host_reads(method, regparams, res)
+        lockstep = _resolve_impl(cfg, impl) == "vmap"
+        emit({"phase": "batch", "path": name, "impl": impl,
+              "resolved": _resolve_impl(cfg, impl), "card": smi, "pairs": count,
+              "shape": [n, n], "wall_s": wall, "registrations_per_s": count / wall,
+              "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+              "host_reads": reads["lockstep" if lockstep else "per_pair"],
+              "pairs_per_host_read": reads["per_pair"] / reads["lockstep" if lockstep
+                                                               else "per_pair"],
+              "distinct_count_vectors": distinct, "max_abs_err_px": err,
+              "counts_equal": got == want, "launches": launched})
+        require(got == want, f"{name} {impl}: counts {got} against register's {want}")
+        require(err <= tol, f"{name} {impl}: motion {err} px from register's (tol {tol})")
+        require(tuple(res.motion.shape) == (count, 2, n, n)
+                and bool(torch.isfinite(res.motion).all()), f"{name} {impl}: motion")
+    if method == Method.FLUID:
+        require(_resolve_impl(cfg, "auto") == "map", f"{name}: auto is not map")
+    return launches
+
+
+def phase_batch(dev, smi: str) -> dict:
+    launches = {}
+    for path in BATCH_PATHS:
+        launches.update(drive_batch(dev, smi, *path))
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_utilities(dev, b1_ms: float) -> None:
+    """register_resumable on the 4096^2 blob diffusion run, stopped after
+    scale 2 and resumed, bit-equal to register with equal counts;
+    kernel_timer on B1 at 4096^2 beside phase 6's median; debug_nans on an
+    input with one NaN pixel."""
+    iref, imov = pair_on(dev, "blob", N_MAIN)
+    cfg = RegConfig.from_regparams(Method.DIFFUSION, [NITER] * (MAIN_NSCALES + 1),
+                                   MAIN_NSCALES, [ALPHA], NREFINE)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resume.npz")
+        require(register_resumable(iref, imov, cfg, path, _crash_after_scale=2) is None,
+                "register_resumable did not stop after scale 2")
+        resumed = register_resumable(iref, imov, cfg, path)
+    resume_s = time.perf_counter() - t0
+    straight = register(iref, imov, cfg)
+    same = (torch.equal(resumed.motion, straight.motion)
+            and [(t.scale, t.iterations) for t in resumed.traces]
+            == [(t.scale, t.iterations) for t in straight.traces]
+            and all(torch.equal(a.errors, b.errors)
+                    for a, b in zip(resumed.traces, straight.traces)))
+    emit({"phase": "utilities", "check": "register_resumable", "shape": [N_MAIN, N_MAIN],
+          "crash_after_scale": 2, "seconds": resume_s, "bit_equal": same,
+          "iterations": [t.iterations for t in resumed.traces]})
+    require(same, "register_resumable differs from register")
+
+    d = derivatives(iref, imov)
+    g = stack_derivs(d.grad_i, d.it)
+    u = torch.from_numpy(
+        np.random.default_rng(SEED + 1).normal(0, 1, (2, N_MAIN, N_MAIN)).astype(np.float32)
+    ).to(dev)
+    k = RegConfig(method=Method.DIFFUSION, niter=(1,)).block_k
+    per_call = kernel_timer(lambda v: diffusion_block(v, g, ALPHA, k)[0], u, 20, 100, 3)
+    emit({"phase": "utilities", "check": "kernel_timer", "kernel": "diffusion_block",
+          "shape": [N_MAIN, N_MAIN], "k": k, "kernel_timer_ms": per_call * 1e3,
+          "phase6_median_ms": b1_ms})
+    require(np.isfinite(per_call) and per_call > 0, f"kernel_timer gave {per_call}")
+
+    iref, imov = pair_on(dev, "blob", N_BATCH)
+    imov = imov.clone()
+    imov[N_BATCH // 3, N_BATCH // 2] = float("nan")
+    message = None
+    with debug_nans():
+        try:
+            register(iref, imov, RegConfig.from_regparams(
+                Method.DIFFUSION, [NITER] * 3, 2, [ALPHA], NREFINE))
+        except FloatingPointError as e:  # the check: it must raise
+            message = str(e)
+    emit({"phase": "utilities", "check": "debug_nans", "raised": message})
+    require(message is not None and "scale 2, refinement 0" in message,
+            f"debug_nans did not name the coarsest level: {message}")
 
 
 def library_solvers(nx: int, ny: int) -> dict:
@@ -1669,6 +1965,7 @@ def phase_times(dev) -> dict:
     emit({"phase": "times", "fluid_iteration": "two_pass", "shape": [n, n],
           "ms": median_ms(lambda: two(*step_args))})
     times.update(strip_times(dev, imov, g, u, v))
+    times.update(batch_times(dev))
     emit({"phase": "times", "demons_tiles": {
         "demons_onepass": k_op.onepass_plan(KW),
         "demons_correspondence": k_df.correspondence_plan(KW),
@@ -1698,6 +1995,55 @@ def phase_times(dev) -> dict:
         ops_ms = OPS[STRIP_OF.get(name, name)] * npix / PEAK_F32_NO_FMA_PER_S * 1e3
         emit({"phase": "times", "kernel": name, "instruction_floor": True, **floor,
               "ops_ms": ops_ms, "ms": times[name]["ms"]})
+    return times
+
+
+def batch_times(dev) -> dict:
+    """The batched kernels at the batch path's shape, BATCH pairs of
+    N_BATCH^2, every pair listed: each against its plain version (a loop of
+    the single-pair plain version) and against BATCH single-pair launches
+    of its kernel (``singles_ms``), its bound that of the single kernel on
+    all the pairs' pixels."""
+    irefs, imovs, _ = batch_stack(dev, "blob", N_BATCH, BATCH)
+    d = derivatives(irefs, imovs)
+    g = stack_derivs(d.grad_i, d.it)
+    del d
+    rng = np.random.default_rng(SEED + 2)
+    u = torch.from_numpy(rng.normal(0, 1, (BATCH, 2, N_BATCH, N_BATCH)).astype(np.float32)).to(dev)
+    v = (torch.tanh(u) * 0.4).contiguous()
+    k = RegConfig(method=Method.DIFFUSION, niter=(1,)).block_k
+    pairs = _build.Pairs(range(BATCH), BATCH)
+    out = torch.empty_like(u)
+    every = range(BATCH)
+    runs = {
+        "diffusion_block_batch": (
+            lambda: diffusion_block_batch(u, g, ALPHA, k, pairs, out),
+            lambda: diffusion_block_batch_ref(u, g, ALPHA, k, pairs, out),
+            lambda: [diffusion_block(u[p], g[p], ALPHA, k) for p in every]),
+        "diffusion_step_batch": (
+            lambda: diffusion_step_batch(u, g, ALPHA, pairs, out),
+            lambda: diffusion_step_batch_ref(u, g, ALPHA, pairs, out),
+            lambda: [diffusion_step_fused(u[p], g[p, :2], g[p, 2], ALPHA) for p in every]),
+        "warp2d_batch": (lambda: warp2d_batch(imovs, u, pairs),
+                         lambda: warp2d_batch_ref(imovs, u, pairs),
+                         lambda: [warp2d(imovs[p], u[p]) for p in every]),
+        "compose_batch": (lambda: compose_batch(u, v, pairs, out),
+                          lambda: compose_batch_ref(u, v, pairs, out),
+                          lambda: [compose(u[p], v[p]) for p in every]),
+        "logger_norms_batch": (lambda: logger_norms_batch(u, v, pairs),
+                               lambda: logger_norms_batch_ref(u, v, pairs),
+                               lambda: [logger_norms(u[p], v[p]) for p in every]),
+    }
+    times = {}
+    for name, (kern, plain, singles) in runs.items():
+        # No PyTorch call computes these functions (the footnotes of the
+        # single-pair kernels above).
+        t = {"ms": median_ms(kern), "plain_ms": median_ms(plain),
+             **bound(name, BATCH * N_BATCH * N_BATCH), "library_ms": None}
+        times[name] = t
+        emit({"phase": "times", "kernel": name, "shape": [BATCH, N_BATCH, N_BATCH],
+              **({"k": k} if name == "diffusion_block_batch" else {}), **t,
+              "singles_ms": median_ms(singles)})
     return times
 
 
@@ -1822,6 +2168,7 @@ def main() -> None:
     err = timed("kernels", phase_kernels, dev)
     timed("library", phase_library, dev)
     main_launches = timed("main", phase_main, dev)
+    main_launches.update(timed("batch", phase_batch, dev, smi))
     for path in ("thirion", "diffeomorphic", "fluid", "elastic", "diffusion_tiled"):
         timed("profile", phase_profile, dev, path)
     for path in ("thirion_tiled", "diffeo_tiled"):  # beside sp_thirion and sp_diffeo
@@ -1834,6 +2181,7 @@ def main() -> None:
     parity_launches = timed("parity", phase_parity, dev)
     times = timed("times", phase_times, dev)
     timed("times", library_times, dev)
+    timed("utilities", phase_utilities, dev, times["diffusion_block"]["ms"])
     emit({"phase": "seconds", **seconds})
     launches = {name: sum(run[name] for run in main_launches.values()) for name in KERNELS}
     missing = [name for name in KERNELS if launches[name] == 0]

@@ -11,9 +11,13 @@ are cuBLAS matmuls and cuFFT transforms at full float32. Ported: the
 diffusion (Horn-Schunck), curvature, Thirion and diffeomorphic demons,
 elastic and viscous-fluid registrations (SOR, periodic FFT or Dirichlet
 DST-I Navier-Lame solves), ``register_phased``, the JAX API's huge-grid
-entry point, and ``parallel``: the mesh and the strip-parallel drivers of
-every family (``make_register_sp`` and its level, step, sweep and
-transform factories), one process over the strips' devices.
+entry point, and ``parallel``: the mesh, batched registration over its data
+axis (``register_batch``: the lockstep driver for diffusion, curvature and
+elastic, each pair in turn for every family), the strip-parallel drivers
+of every family (``make_register_sp`` and its level, step, sweep and
+transform factories), one process over the strips' devices, and the
+multi-process launcher; and ``utils``: checkpoint and resume
+(``register_resumable``), the health checks and the profiling helpers.
 """
 
 from opticalflow2d_tpu_torch.config import (

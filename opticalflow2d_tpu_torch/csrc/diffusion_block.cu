@@ -1,7 +1,9 @@
 // Temporal-blocked Horn-Schunck diffusion on Hopper (sm_90a): k Jacobi
 // iterations per pass over device memory, with the reference Logger's
 // per-iteration sums. One body, two entry points:
-//   B1 of2d_diffusion_block, the whole image;
+//   B1 of2d_diffusion_block, the whole image, and of2d_diffusion_block_batch,
+//      the whole images of the listed pairs of a stack in one launch (the
+//      grid's z axis; the lockstep batch driver, parallel/batch.py);
 //   K1 of2d_diffusion_block_strip, one strip of the strip-parallel driver
 //      (parallel/spatial.py), pre-padded with pad >= k halo rows a side.
 //
@@ -50,32 +52,40 @@ namespace {
 
 // B1 or K1 on plan P with k compiled in (K > 0) or at run time (K = 0),
 // then the sums of the partials.
+// With pairs (B1 batched: whole images only), one grid layer per listed pair
+// and one group of sums per pair.
 template <int K, int P>
 int launch_plan(const float* u, const float* g, float* out, float* partials, float* sums,
-                Rows r, int ny, int k, float a2, cudaStream_t stream) {
+                Rows r, int ny, int k, float a2, const int* pairs, int n_pairs,
+                cudaStream_t stream) {
   constexpr DiffusionPlan p = kDiffusionPlans[P];
   auto* kernel = diffusion_block_kernel<K, p.tx, p.ty, p.threads, p.min_blocks>;
   const int smem = diffusion_smem_bytes(k, p);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((ny + p.ty - 1) / p.ty, (r.nxl + p.tx - 1) / p.tx);
-  kernel<<<grid, p.threads, smem, stream>>>(u, g, out, partials, r, ny, k, a2);
+  const dim3 grid((ny + p.ty - 1) / p.ty, (r.nxl + p.tx - 1) / p.tx, n_pairs);
+  kernel<<<grid, p.threads, smem, stream>>>(u, g, out, partials, r, ny, k, a2, pairs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_sum_partials(partials, sums, static_cast<int>(grid.x * grid.y), 2 * k, stream);
+  return launch_sum_partials(partials, sums, static_cast<int>(grid.x * grid.y), 2 * k, stream,
+                             n_pairs);
 }
 
 int launch_diffusion_block(const float* u, const float* g, float* out, float* partials,
-                           float* sums, Rows r, int ny, int k, float a2, cudaStream_t stream) {
-  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+                           float* sums, Rows r, int ny, int k, float a2, cudaStream_t stream,
+                           const int* pairs = nullptr, int n_pairs = 1) {
+  if (k < 1 || n_pairs < 1 || n_pairs > kMaxPairs)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (diffusion_plan_index(k)) {
     case 0:
       return k == kDiffusionStaticK
                  ? launch_plan<kDiffusionStaticK, 0>(u, g, out, partials, sums, r, ny, k, a2,
-                                                     stream)
-                 : launch_plan<0, 0>(u, g, out, partials, sums, r, ny, k, a2, stream);
-    case 1: return launch_plan<0, 1>(u, g, out, partials, sums, r, ny, k, a2, stream);
+                                                     pairs, n_pairs, stream)
+                 : launch_plan<0, 0>(u, g, out, partials, sums, r, ny, k, a2, pairs, n_pairs,
+                                     stream);
+    case 1:
+      return launch_plan<0, 1>(u, g, out, partials, sums, r, ny, k, a2, pairs, n_pairs, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);  // no plan fits
   }
 }
@@ -103,6 +113,19 @@ extern "C" int of2d_diffusion_block(const float* u, const float* g, float* out,
                                     float* partials, float* sums, int nx, int ny,
                                     int k, float a2, cudaStream_t stream) {
   return launch_diffusion_block(u, g, out, partials, sums, whole_image(nx), ny, k, a2, stream);
+}
+
+// B1 batched: u [B, 2, nx, ny], g [B, 3, nx, ny] -> out [B, 2, nx, ny] for
+// the n_pairs pairs listed in pairs (device int32, each in [0, B), no
+// repeats; the other pairs of out are not written), sums [n_pairs, k, 2] in
+// list order; partials [n_pairs, of2d_diffusion_block_nblocks(nx, ny, k), k,
+// 2] is scratch. Each pair's out and sums equal its own of2d_diffusion_block's.
+extern "C" int of2d_diffusion_block_batch(const float* u, const float* g, float* out,
+                                          float* partials, float* sums, const int* pairs,
+                                          int n_pairs, int nx, int ny, int k, float a2,
+                                          cudaStream_t stream) {
+  return launch_diffusion_block(u, g, out, partials, sums, whole_image(nx), ny, k, a2, stream,
+                                pairs, n_pairs);
 }
 
 // K1: u_pad [2, nxl + 2 pad, ny], g_pad [3, nxl + 2 pad, ny] of the strip

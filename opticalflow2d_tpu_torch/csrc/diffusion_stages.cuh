@@ -188,14 +188,24 @@ __device__ __forceinline__ void diffusion_stage(const float* __restrict__ u,
   __syncthreads();
 }
 
-// B1 and K1 on one TX x TY tile per block; K > 0 compiles k in.
+// B1 and K1 on one TX x TY tile per block; K > 0 compiles k in. With
+// ``pairs`` (B1 batched), blockIdx.z is a position in that list of pairs:
+// the pair's planes start pairs[z] planes-of-a-pair in (64-bit offsets) and
+// its partials rows follow the earlier positions' (partials.cuh), so each
+// pair's tile computes exactly what its single-pair launch computes.
 template <int K, int TX, int TY, int NT, int MB>
 __global__ void __launch_bounds__(NT, MB)
 diffusion_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
                        float* __restrict__ out, float* __restrict__ partials, Rows r, int ny,
-                       int k_arg, float a2) {
+                       int k_arg, float a2, const int* __restrict__ pairs) {
   extern __shared__ float smem[];
   const int k = K > 0 ? K : k_arg;
+  if (pairs != nullptr) {
+    const size_t pair = static_cast<size_t>(pairs[blockIdx.z]);
+    u += pair * 2 * r.in_plane(ny);
+    g += pair * 3 * r.in_plane(ny);
+    out += pair * 2 * r.out_plane(ny);
+  }
   const int ex = TX + 2 * k, ey = TY + 2 * k, pl = ex * ey;
   float* cur = smem;
   float* nxt = cur + 2 * pl;
@@ -213,8 +223,10 @@ diffusion_block_kernel(const float* __restrict__ u, const float* __restrict__ g,
                                                                         k, TX, TY, a2);
     store_tile<NT, false>(uk, tile, TX, TY, r, i0, j0, out);
   }
-  tile_partials<NT>(red, k, static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x,
-                         partials);
+  const size_t tiles = static_cast<size_t>(gridDim.x) * gridDim.y;
+  tile_partials<NT>(red, k,
+                    blockIdx.z * tiles + static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x,
+                    partials);
 }
 
 }  // namespace

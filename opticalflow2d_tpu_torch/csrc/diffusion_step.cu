@@ -1,7 +1,9 @@
 // One fused Horn-Schunck diffusion step on Hopper (sm_90a).
 //
 // Replaces: opticalflow2d_tpu/pallas_kernels/diffusion_fused.py,
-//   diffusion_step_pallas (the TPU kernel, :106).
+//   diffusion_step_pallas (the TPU kernel, :106). of2d_diffusion_step_batch
+//   runs the listed pairs of a stack in one launch (the grid's z axis; the
+//   lockstep batch driver's recompute of a block, parallel/batch.py).
 // Bound on this card: device-memory bandwidth. A step reads u (2 planes),
 //   gx, gy, It and writes u_new (2 planes): about 28 B per pixel-iteration
 //   against almost no arithmetic (diffusion_fused.py:3-6).
@@ -22,15 +24,30 @@ namespace {
 
 constexpr int kThreadsY = 32;  // along y, the contiguous axis
 constexpr int kThreadsX = 8;
+constexpr int kMaxPairs = 65535;  // pairs of one batched launch: a grid's z extent
 
+// kBatch (B2 batched): blockIdx.z is a position in the list ``pairs``, and
+// u and out of pair pairs[z] start 2 planes a pair in, gx, gy and It
+// g_stride floats a pair in (64-bit offsets); a single launch compiles
+// without it.
+template <bool kBatch>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
 diffusion_step_kernel(const float* __restrict__ u, const float* __restrict__ gx,
                       const float* __restrict__ gy, const float* __restrict__ it,
-                      float* __restrict__ out, int nx, int ny, float a2) {
+                      float* __restrict__ out, int nx, int ny, float a2,
+                      const int* __restrict__ pairs, size_t g_stride) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
   const size_t n = static_cast<size_t>(nx) * ny;
+  if (kBatch) {
+    const size_t pair = static_cast<size_t>(pairs[blockIdx.z]);
+    u += pair * 2 * n;
+    out += pair * 2 * n;
+    gx += pair * g_stride;
+    gy += pair * g_stride;
+    it += pair * g_stride;
+  }
   const size_t p = static_cast<size_t>(i) * ny + j;
   // Zero-border quasi-laplacian (reference src/gradients.h:72-80).
   float q0 = 0.f, q1 = 0.f;
@@ -56,6 +73,22 @@ extern "C" int of2d_diffusion_step(const float* u, const float* gx, const float*
                                    float a2, cudaStream_t stream) {
   const dim3 block(kThreadsY, kThreadsX);
   const dim3 grid((ny + kThreadsY - 1) / kThreadsY, (nx + kThreadsX - 1) / kThreadsX);
-  diffusion_step_kernel<<<grid, block, 0, stream>>>(u, gx, gy, it, out, nx, ny, a2);
+  diffusion_step_kernel<false><<<grid, block, 0, stream>>>(u, gx, gy, it, out, nx, ny, a2,
+                                                           nullptr, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2 batched: u [B, 2, nx, ny], g [B, 3, nx, ny] (gx, gy, It) -> out [B, 2,
+// nx, ny] for the n_pairs pairs listed in pairs (device int32, each in
+// [0, B), no repeats; the other pairs of out are not written).
+extern "C" int of2d_diffusion_step_batch(const float* u, const float* g, float* out,
+                                         const int* pairs, int n_pairs, int nx, int ny,
+                                         float a2, cudaStream_t stream) {
+  if (n_pairs < 1 || n_pairs > kMaxPairs) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(nx) * ny;
+  const dim3 block(kThreadsY, kThreadsX);
+  const dim3 grid((ny + kThreadsY - 1) / kThreadsY, (nx + kThreadsX - 1) / kThreadsX, n_pairs);
+  diffusion_step_kernel<true><<<grid, block, 0, stream>>>(u, g, g + n, g + 2 * n, out, nx, ny,
+                                                          a2, pairs, 3 * n);
   return static_cast<int>(cudaGetLastError());
 }

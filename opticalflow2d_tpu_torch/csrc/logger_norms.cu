@@ -3,7 +3,9 @@
 // two [2, nx, ny] motion fields (src/Logger.cpp:30-60 tracks their ratio).
 //
 // Replaces: opticalflow2d_tpu/pallas_kernels/logger_norms.py,
-//   logger_norms_pallas (:178).
+//   logger_norms_pallas (:178). of2d_logger_norms_batch takes the listed
+//   pairs of two stacks in one launch (the grid's y axis; the lockstep
+//   batch driver's curvature passes, parallel/batch.py).
 // Bound on this card: device-memory bandwidth. It reads the two fields once
 //   (16 B per pixel) and writes 8 bytes: at 4096^2, 268 MB, or 0.080 ms at
 //   3.35 TB/s. Two square roots per pixel are far below the compute peak.
@@ -48,10 +50,20 @@ constexpr int kThreads = 256;
 constexpr int kPerThread = 16;
 constexpr int kChunk = kThreads * kPerThread;
 
+// kBatch (B4 batched): blockIdx.y is a position in the list ``pairs``, the
+// two fields of pair pairs[y] start 2 planes a pair in (64-bit offsets),
+// and its partials rows follow the earlier positions' (partials.cuh); a
+// single launch compiles without it.
+template <bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 logger_norms_kernel(const float* __restrict__ u_new, const float* __restrict__ u_prev,
-                    float* __restrict__ partials, size_t n) {
+                    float* __restrict__ partials, size_t n, const int* __restrict__ pairs) {
   __shared__ float red[2 * kThreads / 32];
+  if (kBatch) {
+    const size_t pair = static_cast<size_t>(pairs[blockIdx.y]);
+    u_new += pair * 2 * n;
+    u_prev += pair * 2 * n;
+  }
   const size_t base = static_cast<size_t>(blockIdx.x) * kChunk;
   float dsum = 0.f, psum = 0.f;
 #pragma unroll 4
@@ -63,8 +75,9 @@ logger_norms_kernel(const float* __restrict__ u_new, const float* __restrict__ u
       psum += magnitude(b0, b1);
     }
   }
-  block_sum_pair<kThreads / 32>(dsum, psum, threadIdx.x, red,
-                                partials + 2 * static_cast<size_t>(blockIdx.x));
+  const size_t row = kBatch ? static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x
+                            : static_cast<size_t>(blockIdx.x);
+  block_sum_pair<kThreads / 32>(dsum, psum, threadIdx.x, red, partials + 2 * row);
 }
 
 // d/dx of plane f at pixel p = (gi, gj): central inside, one-sided at the
@@ -144,10 +157,28 @@ extern "C" int of2d_logger_norms(const float* u_new, const float* u_prev, float*
                                  float* sums, int nx, int ny, cudaStream_t stream) {
   const size_t n = static_cast<size_t>(nx) * ny;
   const int nblocks = of2d_logger_norms_nblocks(nx, ny);
-  logger_norms_kernel<<<nblocks, kThreads, 0, stream>>>(u_new, u_prev, partials, n);
+  logger_norms_kernel<false><<<nblocks, kThreads, 0, stream>>>(u_new, u_prev, partials, n,
+                                                               nullptr);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_sum_partials(partials, sums, nblocks, 2, stream);
+}
+
+// B4 batched: u_new, u_prev [B, 2, nx, ny] -> sums [n_pairs, 2] of the pairs
+// listed in pairs (device int32, each in [0, B)), in list order; partials
+// [n_pairs, nblocks, 2] is scratch. Each pair's sums equal its own
+// of2d_logger_norms's.
+extern "C" int of2d_logger_norms_batch(const float* u_new, const float* u_prev,
+                                       float* partials, float* sums, const int* pairs,
+                                       int n_pairs, int nx, int ny, cudaStream_t stream) {
+  if (n_pairs < 1 || n_pairs > kMaxPairs) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(nx) * ny;
+  const int nblocks = of2d_logger_norms_nblocks(nx, ny);
+  logger_norms_kernel<true><<<dim3(nblocks, n_pairs), kThreads, 0, stream>>>(
+      u_new, u_prev, partials, n, pairs);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_sum_partials(partials, sums, nblocks, 2, stream, n_pairs);
 }
 
 // u_new, u_prev [2, nx, ny] -> out [3] = (sum |u_new - u_prev|, sum |u_prev|,

@@ -6,6 +6,12 @@
 // row of a [nblocks, nout] partials array; sum_partials_kernel then adds
 // the rows in block order. No float atomics, so a sum, and with it the
 // Logger error and the iteration count, is the same from run to run.
+//
+// A batched launch (the pair axis of the lockstep batch driver) lays its
+// partials out [group][nblocks][nout], one group per pair in launch order,
+// and sums each group on its own: the order depends on nblocks alone, so a
+// pair's sums equal its single-pair launch's bit for bit wherever it sits
+// in the launch.
 
 #pragma once
 
@@ -16,6 +22,8 @@
 namespace {
 
 constexpr int kSumThreads = 256;
+// The most pairs one batched launch takes: a grid's y and z extents.
+constexpr int kMaxPairs = 65535;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -49,13 +57,16 @@ __device__ __forceinline__ void block_sum_pair(float a, float b, int tid, float*
   }
 }
 
-// sums[o] = sum over blocks b, in a fixed order, of partials[b][o];
-// one thread block per output o in [0, nout).
+// sums[g][o] = sum over blocks b, in a fixed order, of partials[g][b][o];
+// one thread block per output o in [0, nout) (blockIdx.x) of group g
+// (blockIdx.y).
 __global__ void __launch_bounds__(kSumThreads)
 sum_partials_kernel(const float* __restrict__ partials, float* __restrict__ sums,
                     int nblocks, int nout) {
   __shared__ float warps[kSumThreads / 32];
   const int o = blockIdx.x;
+  partials += static_cast<size_t>(blockIdx.y) * nblocks * nout;
+  sums += static_cast<size_t>(blockIdx.y) * nout;
   float acc = 0.f;
   for (int b = threadIdx.x; b < nblocks; b += kSumThreads)
     acc += partials[static_cast<size_t>(b) * nout + o];
@@ -70,8 +81,9 @@ sum_partials_kernel(const float* __restrict__ partials, float* __restrict__ sums
 }
 
 inline int launch_sum_partials(const float* partials, float* sums, int nblocks, int nout,
-                               cudaStream_t stream) {
-  sum_partials_kernel<<<nout, kSumThreads, 0, stream>>>(partials, sums, nblocks, nout);
+                               cudaStream_t stream, int groups = 1) {
+  sum_partials_kernel<<<dim3(nout, groups), kSumThreads, 0, stream>>>(partials, sums, nblocks,
+                                                                       nout);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 // Bilinear backward warp and motion composition by direct gather on Hopper
 // (sm_90a). One templated body, four entry points:
 //   B3 of2d_warp2d, of2d_compose: the whole image, exact for any
-//      displacement;
+//      displacement; of2d_warp2d_batch, of2d_compose_batch: the listed pairs
+//      of a stack in one launch (the grid's z axis; parallel/batch.py);
 //   K4 of2d_warp2d_strip, of2d_compose_strip: one strip of the
 //      strip-parallel driver (parallel/spatial.py), pre-padded with its
 //      neighbours' halo rows, under the strip driver's displacement contract.
@@ -46,6 +47,7 @@ namespace {
 
 constexpr int kThreadsY = 32;  // along y, the contiguous axis
 constexpr int kThreadsX = 8;
+constexpr int kMaxPairs = 65535;  // pairs of one batched launch: a grid's z extent
 
 // kCompose = false: data is the image [rows, ny]; out-of-bounds samples and
 //   samples of zero weight keep the image value.
@@ -53,15 +55,26 @@ constexpr int kThreadsX = 8;
 //   u_inc + u_total(x + u_inc) (u_inc alone where the weight is 0), out of
 //   bounds the old u_total.
 // u and out are [C, r.nxl, ny]; data carries r.pad more rows a side.
-template <int kChannels, bool kCompose, bool kStrip>
+// kBatch (B3 batched, whole images): blockIdx.z is a position in the list
+// ``pairs``, and data, u and out of pair pairs[z] start kChannels, 2 and
+// kChannels planes a pair in (64-bit offsets); a single launch compiles
+// without it.
+template <int kChannels, bool kCompose, bool kStrip, bool kBatch = false>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
 gather_kernel(const float* __restrict__ data, const float* __restrict__ u,
-              float* __restrict__ out, Rows r, int ny, int halo) {
+              float* __restrict__ out, Rows r, int ny, int halo,
+              const int* __restrict__ pairs) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= r.nxl || j >= ny) return;
   const size_t n = r.out_plane(ny);
   const size_t n_data = r.in_plane(ny);
+  if (kBatch) {
+    const size_t pair = static_cast<size_t>(pairs[blockIdx.z]);
+    data += pair * kChannels * n_data;
+    u += pair * 2 * n;
+    out += pair * kChannels * n;
+  }
   const size_t p = static_cast<size_t>(i) * ny + j;
   const size_t p_data = r.in_row(i, ny) + j;
   const int gi = r.row0 + i;
@@ -82,13 +95,15 @@ gather_kernel(const float* __restrict__ data, const float* __restrict__ u,
   }
 }
 
-template <int kChannels, bool kCompose, bool kStrip>
+template <int kChannels, bool kCompose, bool kStrip, bool kBatch = false>
 int launch(const float* data, const float* u, float* out, Rows r, int ny, int halo,
-           cudaStream_t stream) {
+           cudaStream_t stream, const int* pairs = nullptr, int n_pairs = 1) {
+  if (n_pairs < 1 || n_pairs > kMaxPairs) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kThreadsY, kThreadsX);
-  const dim3 grid((ny + kThreadsY - 1) / kThreadsY, (r.nxl + kThreadsX - 1) / kThreadsX);
-  gather_kernel<kChannels, kCompose, kStrip><<<grid, block, 0, stream>>>(data, u, out, r, ny,
-                                                                         halo);
+  const dim3 grid((ny + kThreadsY - 1) / kThreadsY, (r.nxl + kThreadsX - 1) / kThreadsX,
+                  n_pairs);
+  gather_kernel<kChannels, kCompose, kStrip, kBatch><<<grid, block, 0, stream>>>(
+      data, u, out, r, ny, halo, pairs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -104,6 +119,24 @@ extern "C" int of2d_warp2d(const float* image, const float* u, float* out, int n
 extern "C" int of2d_compose(const float* u_total, const float* u_inc, float* out,
                             int nx, int ny, cudaStream_t stream) {
   return launch<2, true, false>(u_total, u_inc, out, whole_image(nx), ny, 0, stream);
+}
+
+// B3 batched: images [B, nx, ny] (compose: u_total [B, 2, nx, ny]), u [B, 2,
+// nx, ny] -> out shaped as the data, for the n_pairs pairs listed in pairs
+// (device int32, each in [0, B), no repeats; the other pairs of out are not
+// written).
+extern "C" int of2d_warp2d_batch(const float* images, const float* u, float* out,
+                                 const int* pairs, int n_pairs, int nx, int ny,
+                                 cudaStream_t stream) {
+  return launch<1, false, false, true>(images, u, out, whole_image(nx), ny, 0, stream, pairs,
+                                       n_pairs);
+}
+
+extern "C" int of2d_compose_batch(const float* u_total, const float* u_inc, float* out,
+                                  const int* pairs, int n_pairs, int nx, int ny,
+                                  cudaStream_t stream) {
+  return launch<2, true, false, true>(u_total, u_inc, out, whole_image(nx), ny, 0, stream,
+                                      pairs, n_pairs);
 }
 
 // K4 warp: image_pad [nxl + 2 pad, ny], u [2, nxl, ny] of the strip whose

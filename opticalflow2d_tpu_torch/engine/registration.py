@@ -31,10 +31,23 @@ import numpy as np
 import torch
 
 from opticalflow2d_tpu_torch.config import Method, RegConfig
-from opticalflow2d_tpu_torch.kernels.diffusion_block import diffusion_block, stack_derivs
-from opticalflow2d_tpu_torch.kernels.diffusion_fused import diffusion_step_fused
+from opticalflow2d_tpu_torch.kernels._build import Pairs
+from opticalflow2d_tpu_torch.kernels.diffusion_block import (
+    diffusion_block,
+    diffusion_block_batch,
+    stack_derivs,
+)
+from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
+    diffusion_step_batch,
+    diffusion_step_fused,
+)
 from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block
-from opticalflow2d_tpu_torch.kernels.logger_norms import fluid_metrics, logger_norms
+from opticalflow2d_tpu_torch.kernels.logger_norms import (
+    fluid_metrics,
+    logger_norms,
+    logger_norms_batch,
+)
+from opticalflow2d_tpu_torch.kernels.warp_fused import compose_batch, warp2d_batch
 from opticalflow2d_tpu_torch.ops.resample import (
     downsample_image,
     downsample_motion,
@@ -43,7 +56,7 @@ from opticalflow2d_tpu_torch.ops.resample import (
 )
 from opticalflow2d_tpu_torch.ops.warp import compose, warp2d
 from opticalflow2d_tpu_torch.solvers.base import Derivatives, derivatives, lssd_force
-from opticalflow2d_tpu_torch.solvers.curvature import make_curvature_step
+from opticalflow2d_tpu_torch.solvers.curvature import make_curvature_solve, make_curvature_step
 from opticalflow2d_tpu_torch.solvers.demons import make_demons_step
 from opticalflow2d_tpu_torch.solvers.elastic import elastic_step
 from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
@@ -51,6 +64,7 @@ from opticalflow2d_tpu_torch.solvers.navier_lame import (
     make_dirichlet_navier_lame_solver,
     make_spectral_navier_lame_solver,
 )
+from opticalflow2d_tpu_torch.utils.health import check_level_field
 
 # The JAX package's name and value (opticalflow2d_tpu/engine/registration.py:
 # 58), where it fences the derivatives from the loop at 16384 lanes. Here it
@@ -63,7 +77,9 @@ _DERIV_BARRIER_MIN_EXTENT = 8192
 
 class LevelTrace(NamedTuple):
     """Convergence trace of one (level, refinement) solve, the functional
-    equivalent of the reference's ``Logger`` error array."""
+    equivalent of the reference's ``Logger`` error array. A batch result
+    (``parallel.register_batch``) holds a leading pair axis on every field
+    but ``scale``: ``errors [B, niter]``, the counts ``[B]`` int64 tensors."""
 
     scale: int
     errors: torch.Tensor  # [niter] float32 on the CPU, 0 past the stop
@@ -73,7 +89,7 @@ class LevelTrace(NamedTuple):
 
 
 class RegistrationResult(NamedTuple):
-    motion: torch.Tensor               # [2, nx, ny]
+    motion: torch.Tensor               # [2, nx, ny] ([B, 2, nx, ny] for a batch)
     traces: Tuple[LevelTrace, ...]     # coarse -> fine, refine-major
     # Final coarsest-level field (the reference's motion[nscales]), which a
     # repeated session register continues from under
@@ -96,7 +112,7 @@ def _solve_level_blocked(u, iref, imov, cfg: RegConfig, niter: int,
     nb = -(-niter // k)
     tol = np.float32(cfg.convergence_tol)
     traces = []
-    for _refine in range(cfg.nrefine):
+    for refine in range(cfg.nrefine):
         d = derivatives(iref, warp2d(imov, u))
         g = stack_derivs(d.grad_i, d.it)
         u_est = torch.zeros_like(u)
@@ -120,7 +136,78 @@ def _solve_level_blocked(u, iref, imov, cfg: RegConfig, niter: int,
                           f"relative error {float(errs_blk[t]):.6f}", flush=True)
             it += n_take
         u = compose(u, u_est)
+        check_level_field(scale, refine, u_est, u)
         traces.append(LevelTrace(scale, torch.from_numpy(errs[:niter].copy()), it, 0))
+    return u, traces
+
+
+def _solve_level_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int, k: int,
+                       block_fn, recompute_fn):
+    """``_solve_level_blocked`` over a stack of pairs in lockstep: ``u [B, 2,
+    nx, ny]``, ``irefs`` and ``imovs [B, nx, ny]``. Each pair keeps its own
+    Logger stop and iteration count, as the JAX package's vmapped
+    ``while_loop`` does; once it stops, its field does not change. A block
+    launches its kernels once for the pairs still active and reads all
+    their sums ``[n_active, k, 2]`` in one host read; a pair whose stop
+    lands inside the block recomputes its taken steps from the block's
+    start; a pair that has stopped leaves the active list and is not
+    launched again (where JAX's vmap executes both branches under a mask,
+    with the same results).
+
+    The increments ping-pong between two stacks, ``cur`` (the block's
+    start) and ``nxt``; a stopping pair's field goes to ``final``.
+    ``block_fn(cur, g, pairs, nxt) -> sums [n, k, 2]`` writes the ``k``
+    iterations of each listed pair into ``nxt``;
+    ``recompute_fn(cur, g, pairs, n, nxt, final)`` writes the first ``n``
+    of them into ``final`` and may overwrite the listed pairs of ``nxt``."""
+    b = u.shape[0]
+    nb = -(-niter // k)
+    tol = np.float32(cfg.convergence_tol)
+    everyone = Pairs(range(b), b)
+    traces = []
+    for refine in range(cfg.nrefine):
+        d = derivatives(irefs, warp2d_batch(imovs, u, everyone))
+        g = stack_derivs(d.grad_i, d.it)
+        cur, nxt, final = torch.zeros_like(u), torch.empty_like(u), torch.zeros_like(u)
+        errs = np.zeros((b, nb * k), np.float32)
+        its = np.zeros(b, np.int64)
+        active = everyone if niter > 0 else None
+        while active is not None:
+            s = block_fn(cur, g, active, nxt).cpu().numpy()  # the one host read per block
+            still, stop_full, stop_inside = [], [], {}
+            for z, p in enumerate(active):
+                prev = s[z, :, 1]
+                errs_blk = np.where(prev == 0, np.float32(0),
+                                    s[z, :, 0] / np.where(prev == 0, np.float32(1), prev))
+                it = int(its[p])
+                its_blk = it + np.arange(k)
+                conv_vec = (errs_blk < tol) & (its_blk > 1) & (its_blk < niter)
+                conv = bool(conv_vec.any())
+                n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
+                errs[p, it:it + n_take] = errs_blk[:n_take]
+                if cfg.verbose_stream:
+                    for t in range(n_take):
+                        print(f"  [pair {p}] [scale {scale}] iteration {it + t + 1}: "
+                              f"relative error {float(errs_blk[t]):.6f}", flush=True)
+                its[p] = it + n_take
+                if not conv and its[p] < niter:
+                    still.append(p)
+                elif n_take < k:
+                    stop_inside.setdefault(n_take, []).append(p)
+                else:
+                    stop_full.append(p)
+            for p in stop_full:
+                final[p] = nxt[p]
+            for n_take, ps in stop_inside.items():
+                recompute_fn(cur, g, Pairs(ps, b), n_take, nxt, final)
+            cur, nxt = nxt, cur
+            if len(still) != len(active):
+                active = Pairs(still, b) if still else None
+        u = compose_batch(u, final, everyone)
+        check_level_field(scale, refine, final, u)
+        traces.append(LevelTrace(scale, torch.from_numpy(errs[:, :niter].copy()),
+                                 torch.from_numpy(its), torch.zeros(b, dtype=torch.int64),
+                                 torch.zeros(b, dtype=torch.int64)))
     return u, traces
 
 
@@ -128,6 +215,16 @@ def _diffusion_steps(u, g, n: int, alpha: float):
     for _ in range(n):
         u = diffusion_step_fused(u, g[:2], g[2], alpha)
     return u
+
+
+def _diffusion_steps_batch(cur, g, pairs, n: int, nxt, final, alpha: float):
+    """``n`` steps of the listed pairs from ``cur`` into ``final``, one
+    launch a step, ping-ponging between ``final`` and ``nxt`` so that the
+    last lands in ``final``."""
+    bufs = (final, nxt) if n % 2 else (nxt, final)
+    src = cur
+    for t in range(n):
+        src = diffusion_step_batch(src, g, alpha, pairs, bufs[t % 2])
 
 
 def _single_step_pass(step):
@@ -138,6 +235,27 @@ def _single_step_pass(step):
         return new, logger_norms(new, u)[None]
 
     return block
+
+
+def _single_step_pass_batch(step):
+    """A batched block of one iteration for ``_solve_level_batch``:
+    ``step(u [n, 2, nx, ny], g [n, 3, nx, ny])`` on the listed pairs'
+    fields, and their Logger sums ``[n, 1, 2]`` in one launch (B4)."""
+    def block(cur, g, pairs, nxt):
+        ix = pairs.on(cur.device).long()
+        nxt.index_copy_(0, ix, step(cur.index_select(0, ix), g.index_select(0, ix)))
+        return logger_norms_batch(nxt, cur, pairs)[:, None]
+
+    return block
+
+
+def _per_pair(step):
+    """A step over a leading pair axis from a single-pair ``step(u, d)``."""
+    def batched(u, g):
+        return torch.stack([step(u[i], Derivatives(g[i, :2], g[i, 2]))
+                            for i in range(u.shape[0])])
+
+    return batched
 
 
 def _navier_lame_spectral(cfg: RegConfig, nx: int, ny: int):
@@ -207,6 +325,69 @@ def _solve_level_variational(u, iref, imov, cfg: RegConfig, niter: int, scale: i
     )
 
 
+def _solve_level_variational_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int):
+    """``_solve_level_variational`` over a stack of pairs in lockstep
+    (``_solve_level_batch``). Diffusion: B1 over the active pairs, B2 over
+    those that stop inside a block (one launch a step for each count of
+    taken steps). Curvature: its force over the active pairs' stack, its
+    spectral solve once per pair, B4 over them: one cuBLAS matmul over the
+    stack takes another algorithm than a pair's own and, over 600
+    iterations at 1024^2, ends up to 7.9e-5 px from ``register`` on an
+    H100, where the solve per pair keeps every pair bit-equal. Red-black
+    elastic: B6 once per active pair. The spectral elastic solves and the
+    lexicographic sweep: their step once per active pair, B4 over them."""
+    nx, ny = irefs.shape[-2:]
+    if cfg.method == Method.DIFFUSION:
+        k = cfg.block_k
+        return _solve_level_batch(
+            u, irefs, imovs, cfg, niter, scale, k,
+            block_fn=lambda cur, g, pairs, nxt: diffusion_block_batch(
+                cur, g, cfg.alpha, k, pairs, nxt)[1],
+            recompute_fn=lambda cur, g, pairs, n, nxt, final: _diffusion_steps_batch(
+                cur, g, pairs, n, nxt, final, cfg.alpha),
+        )
+    if cfg.method == Method.CURVATURE:
+        solve = make_curvature_solve(nx, ny, cfg.alpha, cfg.tau, cfg.torch_dtype,
+                                     cfg.resolved_dct_impl)
+
+        def step(v, g):
+            rhs = v - cfg.tau * lssd_force(Derivatives(g[:, :2], g[:, 2]), v)
+            return torch.stack([solve(r) for r in rhs])
+
+        return _solve_level_batch(
+            u, irefs, imovs, cfg, niter, scale, 1, block_fn=_single_step_pass_batch(step),
+            recompute_fn=None,  # never called: a block of one is always taken
+        )
+    solve = _navier_lame_spectral(cfg, nx, ny)
+    if solve is not None or cfg.sor_ordering == "lexicographic":
+        if solve is not None:
+            def step(v, d):
+                return solve(lssd_force(d, v))
+        else:
+            def step(v, d):
+                return elastic_step(v, d, cfg.mu, cfg.lam, cfg.omega,
+                                    cfg.compat.elastic_stencil_reference, "lexicographic")
+        return _solve_level_batch(
+            u, irefs, imovs, cfg, niter, scale, 1,
+            block_fn=_single_step_pass_batch(_per_pair(step)),
+            recompute_fn=None,  # never called: a block of one is always taken
+        )
+    if cfg.sor_ordering != "redblack":
+        raise ValueError(f"unknown SOR ordering {cfg.sor_ordering!r}")
+    k = min(4, cfg.block_k)
+    args = (cfg.mu, cfg.lam, cfg.omega, cfg.compat.elastic_stencil_reference)
+
+    def block(cur, g, pairs, nxt):
+        return torch.stack([elastic_block(cur[p], g[p], *args, k, out=nxt[p])[1]
+                            for p in pairs])
+
+    def recompute(cur, g, pairs, n, nxt, final):
+        for p in pairs:
+            elastic_block(cur[p], g[p], *args, n, out=final[p])
+
+    return _solve_level_batch(u, irefs, imovs, cfg, niter, scale, k, block, recompute)
+
+
 def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     """Fluid: a velocity that starts at zero on each level and persists
     across its refinements, the adaptive timestep, and Jacobian-triggered
@@ -239,7 +420,7 @@ def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     threshold = np.float32(cfg.regrid_threshold)
     velocity = torch.zeros_like(u)
     traces = []
-    for _refine in range(cfg.nrefine):
+    for refine in range(cfg.nrefine):
         d = derivatives(iref, warp2d(imov, u))
         g = stack_derivs(d.grad_i, d.it)
         u_est = torch.zeros_like(u)
@@ -266,6 +447,7 @@ def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
             u_est = u_new
             it += 1
         u = compose(u, u_est)
+        check_level_field(scale, refine, u_est, u)
         traces.append(LevelTrace(scale, torch.from_numpy(errs), it, nregrid))
     return u, traces
 
@@ -287,7 +469,7 @@ def _solve_level_demons(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     n_pix = np.float32(u.shape[1] * u.shape[2])
     tol = np.float32(cfg.convergence_tol)
     traces = []
-    for _refine in range(cfg.nrefine):
+    for refine in range(cfg.nrefine):
         iaux = warp2d(imov, u)
         u_est = torch.zeros_like(u)
         errs = np.zeros(niter, np.float32)
@@ -304,6 +486,7 @@ def _solve_level_demons(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
             conv = bool(err < tol) and it > 1
             it += 1
         u = compose(u, u_est)
+        check_level_field(scale, refine, u_est, u)
         traces.append(LevelTrace(scale, torch.from_numpy(errs), it, 0))
     return u, traces
 
@@ -375,6 +558,61 @@ def _register_impl(iref, imov, cfg: RegConfig, initial_motion=None,
 
     return RegistrationResult(motion=u_full, traces=tuple(traces),
                               coarse_motion=coarse_final)
+
+
+def _each(fn, stack: torch.Tensor, *args) -> torch.Tensor:
+    """``fn`` on each pair of a stack, stacked: the pyramid's resampling runs
+    per pair, with the 2D call ``register`` makes, since the downsample
+    past 4096 adds in an order that follows the leading size
+    (``ops.resample.box_product_accumulators``)."""
+    return torch.stack([fn(x, *args) for x in stack])
+
+
+def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
+    """``_register_impl`` over a stack of pairs in lockstep, the counterpart
+    of the JAX package's ``jax.vmap(_register_impl)``: ``irefs``, ``imovs
+    [B, nx, ny]``, ``initial_motions [B, 2, nx, ny]`` or None. The levels
+    and refinements advance together; within a refinement each pair stops
+    on its own (``_solve_level_variational_batch``). Diffusion, curvature
+    and elastic only. Every pair's result equals its own ``register``'s
+    bit for bit: B1-B4 reduce each pair in the order of a single launch,
+    and curvature's transforms run per pair."""
+    if cfg.method not in (Method.DIFFUSION, Method.CURVATURE, Method.ELASTIC):
+        raise NotImplementedError(
+            f"the lockstep batch driver runs diffusion, curvature and elastic, not "
+            f"{cfg.method.name}: its fluid and demons drivers are ROADMAP A15 part 2")
+    b = irefs.shape[0]
+    dims = pyramid_dims(tuple(irefs.shape[1:]), cfg.nscales)
+    if min(dims[-1]) < 4:
+        raise ValueError(
+            f"nscales={cfg.nscales} shrinks the coarsest level to "
+            f"{dims[-1]}; every level needs at least 4 pixels per side"
+        )
+    pyr_ref = {0: irefs}
+    pyr_mov = {0: imovs}
+    for s in range(1, cfg.nscales + 1):
+        pyr_ref[s] = _each(downsample_image, irefs, dims[s])
+        pyr_mov[s] = _each(downsample_image, imovs, dims[s])
+    if initial_motions is not None:
+        u_full = initial_motions
+    else:
+        u_full = torch.zeros((b, 2) + dims[0], dtype=irefs.dtype, device=irefs.device)
+    traces = []
+    coarse_final = None
+    for s in range(cfg.nscales, -1, -1):
+        if s == cfg.nscales and s > 0 and initial_motions is None:
+            u_s = torch.zeros((b, 2) + dims[s], dtype=irefs.dtype, device=irefs.device)
+        elif s > 0:
+            u_s = _each(downsample_motion, u_full, dims[s])
+        else:
+            u_s = u_full
+        u_s, level_traces = _solve_level_variational_batch(
+            u_s, pyr_ref[s], pyr_mov[s], cfg, int(cfg.niter[s]), s)
+        traces.extend(level_traces)
+        if s == cfg.nscales:
+            coarse_final = u_s
+        u_full = _each(upsample_motion, u_s, dims[0]) if s > 0 else u_s
+    return RegistrationResult(motion=u_full, traces=tuple(traces), coarse_motion=coarse_final)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -42,13 +42,18 @@ _SIGNATURES = {
     "of2d_diffusion_block_nblocks": ((_I, _I, _I), _I),
     "of2d_diffusion_block": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     "of2d_diffusion_block_strip": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P), _I),
+    "of2d_diffusion_block_batch": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
     "of2d_diffusion_step": ((_P, _P, _P, _P, _P, _I, _I, _F, _P), _I),
+    "of2d_diffusion_step_batch": ((_P, _P, _P, _P, _I, _I, _I, _F, _P), _I),
     "of2d_warp2d": ((_P, _P, _P, _I, _I, _P), _I),
     "of2d_compose": ((_P, _P, _P, _I, _I, _P), _I),
+    "of2d_warp2d_batch": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "of2d_compose_batch": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
     "of2d_warp2d_strip": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "of2d_compose_strip": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "of2d_logger_norms_nblocks": ((_I, _I), _I),
     "of2d_logger_norms": ((_P, _P, _P, _P, _I, _I, _P), _I),
+    "of2d_logger_norms_batch": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "of2d_demons_nblocks": ((_I, _I, _I), _I),
     "of2d_demons_onepass_smem_bytes": ((_I,), _I),
     "of2d_demons_onepass": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _FA, _FA, _F, _F, _I, _P),
@@ -175,6 +180,60 @@ def check_cuda(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# The most pairs one batched launch takes (csrc/partials.cuh kMaxPairs).
+MAX_PAIRS = 65535
+
+
+class Pairs:
+    """The pairs of a stack that a batched launch runs, in launch order: a
+    tuple of distinct indices in ``[0, batch)``, and its ``int32`` copy on
+    a device, made on the first launch there and kept for the next ones
+    (the lockstep driver builds one when its list of active pairs
+    changes, not at every launch)."""
+
+    def __init__(self, pairs, batch: int):
+        idx = tuple(int(p) for p in pairs)
+        if not 1 <= len(idx) <= MAX_PAIRS:
+            raise ValueError(f"a batched launch takes 1 to {MAX_PAIRS} pairs, got {len(idx)}")
+        if len(set(idx)) != len(idx) or not all(0 <= p < batch for p in idx):
+            raise ValueError(f"pairs must be distinct indices in [0, {batch}), got {list(idx)}")
+        self.idx = idx
+        self.batch = batch
+        self._on = {}
+
+    def __len__(self) -> int:
+        return len(self.idx)
+
+    def __iter__(self):
+        return iter(self.idx)
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        t = self._on.get(device)
+        if t is None:
+            t = self._on[device] = torch.tensor(self.idx, dtype=torch.int32, device=device)
+        return t
+
+
+def as_pairs(pairs, batch: int) -> Pairs:
+    """``pairs`` (a sequence of indices, or ``Pairs`` of the same batch) as
+    ``Pairs``."""
+    if isinstance(pairs, Pairs):
+        if pairs.batch != batch:
+            raise ValueError(f"pairs were made for a batch of {pairs.batch}, not {batch}")
+        return pairs
+    return Pairs(pairs, batch)
+
+
+def check_out(out: torch.Tensor, like: torch.Tensor, *inputs: torch.Tensor) -> None:
+    """Reject an output stack that does not match ``like`` or shares memory
+    with an input: a batched kernel reads its neighbours' cells while
+    other blocks write."""
+    check_cuda("out", out, like.shape, like.device)
+    for t in inputs:
+        if out.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
+            raise ValueError("out must not share memory with an input")
 
 
 def strip_rows(t_pad: torch.Tensor, pad: int) -> int:

@@ -4,7 +4,8 @@ device memory, with the reference Logger's per-iteration sums (CUDA
 ``opticalflow2d_tpu/pallas_kernels/diffusion_block.py``): ``diffusion_block``
 on the whole image, ``diffusion_block_strip`` on one strip of the
 strip-parallel driver (``parallel.spatial``), pre-padded with its
-neighbours' halo rows.
+neighbours' halo rows; ``diffusion_block_batch`` on the listed pairs of a
+stack in one launch (the lockstep batch driver, ``parallel.batch``).
 
 Relative error of iteration t is ``sums[t, 0] / sums[t, 1]``: the step
 magnitude over the previous field's magnitude, both summed over the image
@@ -66,8 +67,10 @@ def diffusion_tiles(nx: int, ny: int, k: int) -> int:
 
 def stack_derivs(grad_i: torch.Tensor, it: torch.Tensor) -> torch.Tensor:
     """Pack (gx, gy, It) into one ``[3, nx, ny]`` tensor, the kernel's force
-    input. Loop-invariant: build it once per refinement."""
-    return torch.cat([grad_i, it[None]], dim=0)
+    input (``[B, 3, nx, ny]`` from ``[B, 2, nx, ny]`` and ``[B, nx, ny]``
+    over a leading pair axis). Loop-invariant: build it once per
+    refinement."""
+    return torch.cat([grad_i, it.unsqueeze(-3)], dim=-3)
 
 
 def _magnitude_sum(v: torch.Tensor) -> torch.Tensor:
@@ -114,6 +117,62 @@ def diffusion_block(u: torch.Tensor, g: torch.Tensor, alpha: float,
         _build.f32(alpha * alpha),
     )
     kernels.LAUNCHES["diffusion_block"] += 1
+    return out, sums
+
+
+def diffusion_block_batch_ref(u: torch.Tensor, g: torch.Tensor, alpha: float, k: int, pairs,
+                              out: torch.Tensor | None = None):
+    """Plain PyTorch version of the batched kernel: ``diffusion_block_ref``
+    on each listed pair, into ``out[p]``; the sums ``[n_pairs, k, 2]`` in
+    list order."""
+    pairs = _build.as_pairs(pairs, u.shape[0])
+    out = torch.zeros_like(u) if out is None else out
+    sums = []
+    for p in pairs:
+        up, sp = diffusion_block_ref(u[p], g[p], alpha, k)
+        out[p] = up
+        sums.append(sp)
+    return out, torch.stack(sums)
+
+
+def diffusion_block_batch(u: torch.Tensor, g: torch.Tensor, alpha: float, k: int, pairs,
+                          out: torch.Tensor | None = None):
+    """``diffusion_block`` on the listed pairs of a stack in one launch:
+    ``u [B, 2, nx, ny]``, ``g [B, 3, nx, ny]`` (``stack_derivs``),
+    ``pairs`` distinct indices in ``[0, B)`` (or ``_build.Pairs``). Writes
+    the ``k`` iterations of pair ``p`` into ``out[p]`` and leaves the other
+    pairs of ``out`` as they are (zeros when ``out`` is None); returns
+    ``(out, sums [n_pairs, k, 2])``, the sums in the order of ``pairs``.
+    Each pair's field and sums equal its own ``diffusion_block`` call's.
+    The plain version on the CPU, the kernel on CUDA."""
+    if _build.on_cpu(u, g, *(() if out is None else (out,))):
+        return diffusion_block_batch_ref(u, g, alpha, k, pairs, out)
+    if u.device.type != "cuda":
+        raise ValueError(f"no diffusion block for device {u.device}")
+    if u.dim() != 4 or u.shape[1] != 2:
+        raise ValueError(f"u must be [B, 2, nx, ny], got {tuple(u.shape)}")
+    b, _, nx, ny = u.shape
+    _build.check_cuda("u", u, (b, 2, nx, ny), u.device)
+    _build.check_cuda("g", g, (b, 3, nx, ny), u.device)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    pairs = _build.as_pairs(pairs, b)
+    if out is None:
+        out = torch.zeros_like(u)
+    _build.check_out(out, u, u, g)
+    lib = _build.load()
+    _build.check_smem(lib.of2d_diffusion_block_smem_bytes(k), u.device,
+                      f"a diffusion block with k={k} (use a smaller block_k)")
+    n = len(pairs)
+    partials = torch.empty((n, lib.of2d_diffusion_block_nblocks(nx, ny, k), k, 2),
+                           dtype=u.dtype, device=u.device)
+    sums = torch.empty((n, k, 2), dtype=u.dtype, device=u.device)
+    _build.launch(
+        "of2d_diffusion_block_batch", u.device, u.data_ptr(), g.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), sums.data_ptr(), pairs.on(u.device).data_ptr(), n, nx, ny, k,
+        _build.f32(alpha * alpha),
+    )
+    kernels.LAUNCHES["diffusion_block_batch"] += 1
     return out, sums
 
 

@@ -3,7 +3,9 @@ force and Jacobi update in one pass (CUDA ``csrc/diffusion_step.cu``, the
 counterpart of ``opticalflow2d_tpu/pallas_kernels/diffusion_fused.py``).
 
 The registration driver runs it to recompute the taken steps of a block in
-which the Logger stop fired (``engine.registration._solve_level_blocked``).
+which the Logger stop fired (``engine.registration._solve_level_blocked``);
+``diffusion_step_batch`` does so for the listed pairs of a stack in one
+launch (the lockstep batch driver, ``engine.registration._solve_level_batch``).
 """
 
 from __future__ import annotations
@@ -58,4 +60,44 @@ def diffusion_step_fused(u: torch.Tensor, grad_i: torch.Tensor, it: torch.Tensor
         _build.f32(alpha * alpha),
     )
     kernels.LAUNCHES["diffusion_step"] += 1
+    return out
+
+
+def diffusion_step_batch_ref(u: torch.Tensor, g: torch.Tensor, alpha: float, pairs,
+                             out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the batched kernel: ``diffusion_step_ref``
+    on each listed pair, into ``out[p]``."""
+    pairs = _build.as_pairs(pairs, u.shape[0])
+    out = torch.zeros_like(u) if out is None else out
+    for p in pairs:
+        out[p] = diffusion_step_ref(u[p], g[p, :2], g[p, 2], alpha)
+    return out
+
+
+def diffusion_step_batch(u: torch.Tensor, g: torch.Tensor, alpha: float, pairs,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """One diffusion step of the listed pairs of a stack in one launch:
+    ``u [B, 2, nx, ny]``, ``g [B, 3, nx, ny]`` (gx, gy, It), ``pairs``
+    distinct indices in ``[0, B)``. Writes pair ``p``'s step into
+    ``out[p]`` and leaves the other pairs of ``out`` as they are (zeros
+    when ``out`` is None); each equals its own ``diffusion_step_fused``
+    call's. The plain version on the CPU, the kernel on CUDA."""
+    if _build.on_cpu(u, g, *(() if out is None else (out,))):
+        return diffusion_step_batch_ref(u, g, alpha, pairs, out)
+    if u.device.type != "cuda":
+        raise ValueError(f"no diffusion step for device {u.device}")
+    if u.dim() != 4 or u.shape[1] != 2:
+        raise ValueError(f"u must be [B, 2, nx, ny], got {tuple(u.shape)}")
+    b, _, nx, ny = u.shape
+    _build.check_cuda("u", u, (b, 2, nx, ny), u.device)
+    _build.check_cuda("g", g, (b, 3, nx, ny), u.device)
+    pairs = _build.as_pairs(pairs, b)
+    if out is None:
+        out = torch.zeros_like(u)
+    _build.check_out(out, u, u, g)
+    _build.launch(
+        "of2d_diffusion_step_batch", u.device, u.data_ptr(), g.data_ptr(), out.data_ptr(),
+        pairs.on(u.device).data_ptr(), len(pairs), nx, ny, _build.f32(alpha * alpha),
+    )
+    kernels.LAUNCHES["diffusion_step_batch"] += 1
     return out

@@ -83,12 +83,19 @@ def elastic_block_ref(u: torch.Tensor, g: torch.Tensor, mu: float, lam: float, o
 
 
 def elastic_block(u: torch.Tensor, g: torch.Tensor, mu: float, lam: float, omega: float,
-                  reference_stencil: bool, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  reference_stencil: bool, k: int,
+                  out: torch.Tensor | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ``k`` elastic iterations of ``u [2, nx, ny]`` with
-    ``g = stack_derivs(grad_i, it)``; returns ``(u_k, sums [k, 2])``. The
-    plain version on the CPU, the kernel on CUDA."""
-    if _build.on_cpu(u, g):
-        return elastic_block_ref(u, g, mu, lam, omega, reference_stencil, k)
+    ``g = stack_derivs(grad_i, it)``; returns ``(u_k, sums [k, 2])``, u_k
+    written into ``out`` where one is given (the lockstep batch driver
+    passes a pair's view of its stack). The plain version on the CPU, the
+    kernel on CUDA."""
+    if _build.on_cpu(u, g, *(() if out is None else (out,))):
+        u_k, sums = elastic_block_ref(u, g, mu, lam, omega, reference_stencil, k)
+        if out is None:
+            return u_k, sums
+        out.copy_(u_k)
+        return out, sums
     if u.device.type != "cuda":
         raise ValueError(f"no elastic block for device {u.device}")
     _, nx, ny = u.shape
@@ -99,7 +106,9 @@ def elastic_block(u: torch.Tensor, g: torch.Tensor, mu: float, lam: float, omega
     lib = _build.load()
     _build.check_smem(lib.of2d_elastic_block_smem_bytes(k), u.device,
                       f"an elastic block with k={k} (use a smaller block_k)")
-    out = torch.empty_like(u)
+    if out is None:
+        out = torch.empty_like(u)
+    _build.check_out(out, u, u, g)
     partials = torch.empty((lib.of2d_elastic_nblocks(nx, ny, k), k, 2), dtype=u.dtype,
                            device=u.device)
     sums = torch.empty((k, 2), dtype=u.dtype, device=u.device)

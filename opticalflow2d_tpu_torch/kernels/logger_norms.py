@@ -7,7 +7,9 @@ same pass (the counterpart of ``fluid_metrics_pallas``).
 The relative error of a step is ``(sums[0] / N) / (sums[1] / N)``
 (``src/Logger.cpp:30-60``). The kernel adds per-block partials in block
 order, with no float atomics, so a run's stop repeats exactly; it takes any
-grid, not only row counts that are multiples of 8.
+grid, not only row counts that are multiples of 8. ``logger_norms_batch``
+takes the listed pairs of two stacks in one launch (the lockstep batch
+driver's curvature passes).
 """
 
 from __future__ import annotations
@@ -51,6 +53,39 @@ def logger_norms(u_new: torch.Tensor, u_prev: torch.Tensor) -> torch.Tensor:
     _build.launch("of2d_logger_norms", u_prev.device, u_new.data_ptr(), u_prev.data_ptr(),
                   partials.data_ptr(), sums.data_ptr(), nx, ny)
     kernels.LAUNCHES["logger_norms"] += 1
+    return sums
+
+
+def logger_norms_batch_ref(u_new: torch.Tensor, u_prev: torch.Tensor, pairs) -> torch.Tensor:
+    """Plain PyTorch version of the batched kernel: ``logger_norms_ref`` of
+    each listed pair, ``[n_pairs, 2]``."""
+    pairs = _build.as_pairs(pairs, u_prev.shape[0])
+    return torch.stack([logger_norms_ref(u_new[p], u_prev[p]) for p in pairs])
+
+
+def logger_norms_batch(u_new: torch.Tensor, u_prev: torch.Tensor, pairs) -> torch.Tensor:
+    """Logger sums of the listed pairs of two ``[B, 2, nx, ny]`` stacks in
+    one launch: ``[n_pairs, 2]`` in the order of ``pairs`` (distinct
+    indices in ``[0, B)``), each equal to its own ``logger_norms`` call's.
+    The plain version on the CPU, the kernel on CUDA."""
+    if _build.on_cpu(u_new, u_prev):
+        return logger_norms_batch_ref(u_new, u_prev, pairs)
+    if u_prev.device.type != "cuda":
+        raise ValueError(f"no Logger norms for device {u_prev.device}")
+    if u_prev.dim() != 4 or u_prev.shape[1] != 2:
+        raise ValueError(f"u_prev must be [B, 2, nx, ny], got {tuple(u_prev.shape)}")
+    b, _, nx, ny = u_prev.shape
+    _build.check_cuda("u_prev", u_prev, (b, 2, nx, ny), u_prev.device)
+    _build.check_cuda("u_new", u_new, (b, 2, nx, ny), u_prev.device)
+    pairs = _build.as_pairs(pairs, b)
+    n = len(pairs)
+    partials = torch.empty((n, _build.load().of2d_logger_norms_nblocks(nx, ny), 2),
+                           dtype=u_prev.dtype, device=u_prev.device)
+    sums = torch.empty((n, 2), dtype=u_prev.dtype, device=u_prev.device)
+    _build.launch("of2d_logger_norms_batch", u_prev.device, u_new.data_ptr(),
+                  u_prev.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+                  pairs.on(u_prev.device).data_ptr(), n, nx, ny)
+    kernels.LAUNCHES["logger_norms_batch"] += 1
     return sums
 
 

@@ -7,7 +7,9 @@ Semantics of the reference (``src/Image.cpp:119-182``,
 grid passes through; the ``(dx+1)`` and ``(dy+1)`` taps count only inside
 the grid, and the sum is renormalized by the included weight. The four taps
 are read at clamped indices, which is exact for any displacement, so unlike
-the TPU kernel there is no halo bound.
+the TPU kernel there is no halo bound. ``warp2d_batch`` and
+``compose_batch`` run the listed pairs of a stack in one launch (the
+lockstep batch driver, ``parallel.batch``).
 """
 
 from __future__ import annotations
@@ -213,3 +215,73 @@ def compose_strip(u_total_pad: torch.Tensor, u_inc: torch.Tensor, row0: int, nx_
         raise ValueError(f"u_total_pad must be [2, rows, ny], got {tuple(u_total_pad.shape)}")
     return _launch_strip("of2d_compose_strip", "compose_strip", u_total_pad, u_inc, row0,
                          nx_glob, halo)
+
+
+def warp2d_batch_ref(images: torch.Tensor, u: torch.Tensor, pairs,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the batched warp: ``warp2d_ref`` on each
+    listed pair, into ``out[p]``."""
+    pairs = _build.as_pairs(pairs, u.shape[0])
+    out = torch.zeros_like(images) if out is None else out
+    for p in pairs:
+        out[p] = warp2d_ref(images[p], u[p])
+    return out
+
+
+def compose_batch_ref(u_total: torch.Tensor, u_inc: torch.Tensor, pairs,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the batched compose: ``compose_ref`` on
+    each listed pair, into ``out[p]``."""
+    pairs = _build.as_pairs(pairs, u_inc.shape[0])
+    out = torch.zeros_like(u_total) if out is None else out
+    for p in pairs:
+        out[p] = compose_ref(u_total[p], u_inc[p])
+    return out
+
+
+def _launch_batch(entry: str, name: str, data: torch.Tensor, u: torch.Tensor, pairs,
+                  out) -> torch.Tensor:
+    if u.device.type != "cuda":
+        raise ValueError(f"no {name} for device {u.device}")
+    if u.dim() != 4 or u.shape[1] != 2:
+        raise ValueError(f"u must be [B, 2, nx, ny], got {tuple(u.shape)}")
+    b, _, nx, ny = u.shape
+    _build.check_cuda("u", u, (b, 2, nx, ny), u.device)
+    _build.check_cuda("data", data, data.shape[:-2] + (nx, ny), u.device)
+    if data.shape[0] != b:
+        raise ValueError(f"data holds {data.shape[0]} pairs, u {b}")
+    pairs = _build.as_pairs(pairs, b)
+    if out is None:
+        out = torch.zeros_like(data)
+    _build.check_out(out, data, data, u)
+    _build.launch(entry, u.device, data.data_ptr(), u.data_ptr(), out.data_ptr(),
+                  pairs.on(u.device).data_ptr(), len(pairs), nx, ny)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def warp2d_batch(images: torch.Tensor, u: torch.Tensor, pairs,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """``warp2d`` of the listed pairs of a stack in one launch: ``images
+    [B, nx, ny]``, ``u [B, 2, nx, ny]``, ``pairs`` distinct indices in
+    ``[0, B)``. Writes pair ``p``'s warp into ``out[p]`` and leaves the
+    other pairs of ``out`` as they are (zeros when ``out`` is None); each
+    equals its own ``warp2d`` call's. The plain version on the CPU, the
+    kernel on CUDA."""
+    if _build.on_cpu(images, u, *(() if out is None else (out,))):
+        return warp2d_batch_ref(images, u, pairs, out)
+    if images.dim() != 3:
+        raise ValueError(f"images must be [B, nx, ny], got {tuple(images.shape)}")
+    return _launch_batch("of2d_warp2d_batch", "warp2d_batch", images, u, pairs, out)
+
+
+def compose_batch(u_total: torch.Tensor, u_inc: torch.Tensor, pairs,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """``compose`` of the listed pairs of two ``[B, 2, nx, ny]`` stacks in
+    one launch, into ``out[p]`` as ``warp2d_batch`` writes. The plain
+    version on the CPU, the kernel on CUDA."""
+    if _build.on_cpu(u_total, u_inc, *(() if out is None else (out,))):
+        return compose_batch_ref(u_total, u_inc, pairs, out)
+    if u_total.dim() != 4 or u_total.shape[1] != 2:
+        raise ValueError(f"u_total must be [B, 2, nx, ny], got {tuple(u_total.shape)}")
+    return _launch_batch("of2d_compose_batch", "compose_batch", u_total, u_inc, pairs, out)

@@ -1,10 +1,12 @@
 """Device meshes (PyTorch port of ``opticalflow2d_tpu.parallel.mesh``).
 
 A mesh is a ``(data, x)`` grid of ``torch.device``s:
-- ``"data"``: pairs registered side by side (not ported yet: ROADMAP queue
-  A, item 15);
+- ``"data"``: a batch of pairs split into one contiguous slice a row, each
+  registered on the row's first device (``parallel.batch.register_batch``),
+  the replacement for the reference wrapper's one-pair-at-a-time loop
+  (``WrapperOpticalFlow2d.cpp:86-102``);
 - ``"x"``: strips of the image's x axis, with halo exchange between them
-  (``parallel.spatial``).
+  (``parallel.spatial``; its drivers take a mesh of one data row).
 
 One process drives every device of the mesh, as the JAX package's single
 controller does. A device may appear more than once: strips on one card run
@@ -31,6 +33,11 @@ class Mesh(NamedTuple):
     def x_devices(self) -> List[torch.device]:
         """The strips' devices, in strip order (data row 0)."""
         return list(self.devices[0])
+
+    def data_devices(self) -> List[torch.device]:
+        """The first device of each data row, in row order: where
+        ``register_batch`` runs the row's pairs."""
+        return [row[0] for row in self.devices]
 
 
 def make_mesh(data: int = 1, x: int = 1,

@@ -126,7 +126,8 @@ def _check_family(family: str) -> None:
 def _strip_devices(mesh: Mesh) -> List[torch.device]:
     if mesh.shape["data"] != 1:
         raise NotImplementedError(
-            "a data axis (pairs side by side) is not ported yet (ROADMAP queue A, item 15)")
+            "the strip drivers take a mesh of one data row, as the JAX package's do; "
+            "a batch of pairs goes to parallel.register_batch")
     return mesh.x_devices()
 
 

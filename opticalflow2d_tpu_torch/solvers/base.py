@@ -32,9 +32,12 @@ def derivatives(iref: torch.Tensor, imov: torch.Tensor) -> Derivatives:
 
 
 def lssd_force(d: Derivatives, u: torch.Tensor) -> torch.Tensor:
-    """Linearized-SSD force ``grad(I) * (It + ux*dIx + uy*dIy)``, ``[2, nx, ny]``."""
-    inner = d.it + u[0] * d.grad_i[0] + u[1] * d.grad_i[1]
-    return d.grad_i * inner[None]
+    """Linearized-SSD force ``grad(I) * (It + ux*dIx + uy*dIy)``, ``[2, nx, ny]``,
+    or ``[B, 2, nx, ny]`` over a leading pair axis (the lockstep batch
+    driver's curvature step), elementwise alike."""
+    gi = d.grad_i
+    inner = d.it + u[..., 0, :, :] * gi[..., 0, :, :] + u[..., 1, :, :] * gi[..., 1, :, :]
+    return gi * inner[..., None, :, :]
 
 
 def demons_force(d: Derivatives, sigma_i: float, sigma_x: float) -> torch.Tensor:

@@ -703,3 +703,78 @@ def test_register_sp_curvature_gpu_matches_cpu(cuda):
     assert gpu.iterations == cpu.iterations
     assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
     assert kernels.LAUNCHES["warp2d_strip"] > 0 and kernels.LAUNCHES["compose_strip"] > 0
+
+
+# --- the pair axis (B1-B4 batched) and the lockstep batch driver -------------
+
+def _batch_stack(shape, dev, n=3):
+    """``n`` pairs of ``_inputs`` stacked, each from its own seed."""
+    parts = [_inputs(*shape, dev, seed=s) for s in range(n)]
+    return tuple(torch.stack([p[i] for p in parts]) for i in range(4))
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (33, 1000)])
+@pytest.mark.parametrize("pairs", [[0, 1, 2], [2, 0]])
+def test_batched_kernels_equal_single_launches(cuda, shape, pairs):
+    """Bit for bit, fields and Logger sums: each listed pair equals its own
+    single-pair launch and the plain version, whatever its place in the
+    list; the other pairs of the output are not written."""
+    from opticalflow2d_tpu_torch.kernels.diffusion_block import diffusion_block_batch
+    from opticalflow2d_tpu_torch.kernels.diffusion_fused import diffusion_step_batch
+    from opticalflow2d_tpu_torch.kernels.logger_norms import logger_norms_batch
+    from opticalflow2d_tpu_torch.kernels.warp_fused import compose_batch, warp2d_batch
+    irefs, imovs, g, u = _batch_stack(shape, cuda)
+    v = (torch.tanh(u.flip(1)) * 0.5).contiguous()
+    fill = torch.full_like(u, 7.0)
+    for k in (3, 8):
+        out, sums = diffusion_block_batch(u, g, 0.1, k, pairs, fill.clone())
+        for z, p in enumerate(pairs):
+            one, one_sums = diffusion_block(u[p], g[p], 0.1, k)
+            ref, _ = diffusion_block_ref(u[p], g[p], 0.1, k)
+            assert _max_abs(out[p], one) == 0.0 and _max_abs(out[p], ref) == 0.0
+            assert torch.equal(sums[z], one_sums)
+        for p in set(range(3)) - set(pairs):
+            assert torch.equal(out[p], fill[p])
+    step = diffusion_step_batch(u, g, 0.1, pairs)
+    warped = warp2d_batch(imovs, u * 4, pairs)
+    composed = compose_batch(v, u * 4, pairs)
+    norms = logger_norms_batch(v, u, pairs)
+    for z, p in enumerate(pairs):
+        assert _max_abs(step[p], diffusion_step_fused(u[p], g[p, :2], g[p, 2], 0.1)) == 0.0
+        assert _max_abs(step[p], diffusion_step_ref(u[p], g[p, :2], g[p, 2], 0.1)) == 0.0
+        assert _max_abs(warped[p], warp2d(imovs[p], u[p] * 4)) == 0.0
+        assert _max_abs(warped[p], warp2d_ref(imovs[p], u[p] * 4)) == 0.0
+        assert _max_abs(composed[p], compose(v[p], u[p] * 4)) == 0.0
+        assert _max_abs(composed[p], compose_ref(v[p], u[p] * 4)) == 0.0
+        assert torch.equal(norms[z], logger_norms(v[p], u[p]))
+        np.testing.assert_allclose(npy(norms[z]), npy(logger_norms_ref(v[p], u[p])),
+                                   rtol=SUMS_RTOL)
+
+
+@pytest.mark.parametrize("method,extra", [
+    (Method.DIFFUSION, dict(alpha=0.1)),
+    (Method.ELASTIC, dict(mu=0.25, lam=0.1, omega=1.5)),
+    (Method.CURVATURE, dict(alpha=0.1, tau=1.0, convergence_tol=0.01)),
+])
+def test_register_batch_gpu_equals_register(cuda, method, extra):
+    """The lockstep driver on the card against each pair's own ``register``
+    there: bit for bit with equal counts (curvature's transforms run per
+    pair); and map likewise."""
+    from opticalflow2d_tpu_torch.parallel import register_batch
+    irefs, imovs, _, _ = _batch_stack((96, 64), cuda)
+    imovs = torch.stack([torch.roll(imovs[i], (i, -i), (0, 1)) for i in range(3)])
+    cfg = RegConfig(method=method, niter=(150, 150), nscales=1, nrefine=2, **extra)
+    kernels.reset_launches()
+    vm = register_batch(irefs, imovs, cfg, impl="vmap")
+    launches = dict(kernels.LAUNCHES)
+    mp = register_batch(irefs, imovs, cfg, impl="map")
+    for i in range(3):
+        one = register(irefs[i], imovs[i], cfg)
+        for res in (vm, mp):
+            assert [int(t.iterations[i]) for t in res.traces] == [
+                t.iterations for t in one.traces]
+            assert _max_abs(res.motion[i], one.motion) == 0.0
+    assert launches["warp2d_batch"] > 0 and launches["compose_batch"] > 0, launches
+    want = {Method.DIFFUSION: ["diffusion_block_batch"], Method.ELASTIC: ["elastic_block"],
+            Method.CURVATURE: ["logger_norms_batch"]}[method]
+    assert all(launches[name] > 0 for name in want), launches

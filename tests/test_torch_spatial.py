@@ -293,7 +293,8 @@ def test_register_demons_sp_matches_jax(meshes, pair):
 
 
 def test_strip_drivers_refuse_what_is_not_ported(meshes, pair):
-    """A data axis still raises; the demons families run."""
+    """A data axis raises (the strip drivers, as JAX's, take one data row;
+    register_batch takes the data axis); the demons families run."""
     _, mesh = meshes
     for family in ("thirions", "diffeo"):
         got = make_register_sp(mesh, family, niter=[2], nscales=0, **DEMONS["thirion_onepass"][1])(
@@ -301,7 +302,7 @@ def test_strip_drivers_refuse_what_is_not_ported(meshes, pair):
         assert got.iterations == (2,)
     with pytest.raises(ValueError, match="devices="):
         make_mesh(x=4, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="one data row"):
         make_warp2d_sharded(make_mesh(data=2, x=2, devices=["cpu"] * 4), 2)
     with pytest.raises(ValueError, match="divisible"):
         make_register_sp(mesh, "diffusion", niter=[4, 4], nscales=1, alpha=0.5)(
