@@ -65,6 +65,7 @@ from opticalflow2d_tpu_torch.solvers.navier_lame import (
     make_spectral_navier_lame_solver,
 )
 from opticalflow2d_tpu_torch.utils.health import check_level_field
+from opticalflow2d_tpu_torch.utils.profiling import entry, span
 
 # The JAX package's name and value (opticalflow2d_tpu/engine/registration.py:
 # 58), where it fences the derivatives from the loop at 16384 lanes. Here it
@@ -113,31 +114,39 @@ def _solve_level_blocked(u, iref, imov, cfg: RegConfig, niter: int,
     tol = np.float32(cfg.convergence_tol)
     traces = []
     for refine in range(cfg.nrefine):
-        d = derivatives(iref, warp2d(imov, u))
-        g = stack_derivs(d.grad_i, d.it)
-        u_est = torch.zeros_like(u)
-        errs = np.zeros(nb * k, np.float32)
-        it, conv = 0, False
-        while it < niter and not conv:
-            u_blk, sums = block_fn(u_est, g)
-            s = sums.cpu().numpy()  # the one host read per block
-            prev = s[:, 1]
-            errs_blk = np.where(prev == 0, np.float32(0),
-                                s[:, 0] / np.where(prev == 0, np.float32(1), prev))
-            its = it + np.arange(k)
-            conv_vec = (errs_blk < tol) & (its > 1) & (its < niter)
-            conv = bool(conv_vec.any())
-            n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
-            u_est = recompute_fn(u_est, g, n_take) if n_take < k else u_blk
-            errs[it:it + n_take] = errs_blk[:n_take]
-            if cfg.verbose_stream:
-                for t in range(n_take):
-                    print(f"  [scale {scale}] iteration {it + t + 1}: "
-                          f"relative error {float(errs_blk[t]):.6f}", flush=True)
-            it += n_take
-        u = compose(u, u_est)
-        check_level_field(scale, refine, u_est, u)
-        traces.append(LevelTrace(scale, torch.from_numpy(errs[:niter].copy()), it, 0))
+        with span("solve", scale=scale, refine=refine, nx=u.shape[-2], ny=u.shape[-1]):
+            with span("derive"):
+                d = derivatives(iref, warp2d(imov, u))
+                g = stack_derivs(d.grad_i, d.it)
+            u_est = torch.zeros_like(u)
+            errs = np.zeros(nb * k, np.float32)
+            it, conv = 0, False
+            while it < niter and not conv:
+                u_blk, sums = block_fn(u_est, g)
+                with span("read", site="block"):
+                    s = sums.cpu().numpy()  # the one host read per block
+                    prev = s[:, 1]
+                    errs_blk = np.where(prev == 0, np.float32(0),
+                                        s[:, 0] / np.where(prev == 0, np.float32(1), prev))
+                    its = it + np.arange(k)
+                    conv_vec = (errs_blk < tol) & (its > 1) & (its < niter)
+                    conv = bool(conv_vec.any())
+                    n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
+                if n_take < k:
+                    with span("recompute"):
+                        u_est = recompute_fn(u_est, g, n_take)
+                else:
+                    u_est = u_blk
+                errs[it:it + n_take] = errs_blk[:n_take]
+                if cfg.verbose_stream:
+                    for t in range(n_take):
+                        print(f"  [scale {scale}] iteration {it + t + 1}: "
+                              f"relative error {float(errs_blk[t]):.6f}", flush=True)
+                it += n_take
+            with span("compose"):
+                u = compose(u, u_est)
+            check_level_field(scale, refine, u_est, u)
+            traces.append(LevelTrace(scale, torch.from_numpy(errs[:niter].copy()), it, 0))
     return u, traces
 
 
@@ -166,48 +175,55 @@ def _solve_level_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int, 
     everyone = Pairs(range(b), b)
     traces = []
     for refine in range(cfg.nrefine):
-        d = derivatives(irefs, warp2d_batch(imovs, u, everyone))
-        g = stack_derivs(d.grad_i, d.it)
-        cur, nxt, final = torch.zeros_like(u), torch.empty_like(u), torch.zeros_like(u)
-        errs = np.zeros((b, nb * k), np.float32)
-        its = np.zeros(b, np.int64)
-        active = everyone if niter > 0 else None
-        while active is not None:
-            s = block_fn(cur, g, active, nxt).cpu().numpy()  # the one host read per block
-            still, stop_full, stop_inside = [], [], {}
-            for z, p in enumerate(active):
-                prev = s[z, :, 1]
-                errs_blk = np.where(prev == 0, np.float32(0),
-                                    s[z, :, 0] / np.where(prev == 0, np.float32(1), prev))
-                it = int(its[p])
-                its_blk = it + np.arange(k)
-                conv_vec = (errs_blk < tol) & (its_blk > 1) & (its_blk < niter)
-                conv = bool(conv_vec.any())
-                n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
-                errs[p, it:it + n_take] = errs_blk[:n_take]
-                if cfg.verbose_stream:
-                    for t in range(n_take):
-                        print(f"  [pair {p}] [scale {scale}] iteration {it + t + 1}: "
-                              f"relative error {float(errs_blk[t]):.6f}", flush=True)
-                its[p] = it + n_take
-                if not conv and its[p] < niter:
-                    still.append(p)
-                elif n_take < k:
-                    stop_inside.setdefault(n_take, []).append(p)
-                else:
-                    stop_full.append(p)
-            for p in stop_full:
-                final[p] = nxt[p]
-            for n_take, ps in stop_inside.items():
-                recompute_fn(cur, g, Pairs(ps, b), n_take, nxt, final)
-            cur, nxt = nxt, cur
-            if len(still) != len(active):
-                active = Pairs(still, b) if still else None
-        u = compose_batch(u, final, everyone)
-        check_level_field(scale, refine, final, u)
-        traces.append(LevelTrace(scale, torch.from_numpy(errs[:, :niter].copy()),
-                                 torch.from_numpy(its), torch.zeros(b, dtype=torch.int64),
-                                 torch.zeros(b, dtype=torch.int64)))
+        with span("solve", scale=scale, refine=refine, nx=u.shape[-2], ny=u.shape[-1]):
+            with span("derive"):
+                d = derivatives(irefs, warp2d_batch(imovs, u, everyone))
+                g = stack_derivs(d.grad_i, d.it)
+            cur, nxt, final = torch.zeros_like(u), torch.empty_like(u), torch.zeros_like(u)
+            errs = np.zeros((b, nb * k), np.float32)
+            its = np.zeros(b, np.int64)
+            active = everyone if niter > 0 else None
+            while active is not None:
+                sums = block_fn(cur, g, active, nxt)
+                with span("read", site="batch"):
+                    s = sums.cpu().numpy()  # the one host read per block
+                    still, stop_full, stop_inside = [], [], {}
+                    for z, p in enumerate(active):
+                        prev = s[z, :, 1]
+                        errs_blk = np.where(prev == 0, np.float32(0),
+                                            s[z, :, 0] / np.where(prev == 0, np.float32(1), prev))
+                        it = int(its[p])
+                        its_blk = it + np.arange(k)
+                        conv_vec = (errs_blk < tol) & (its_blk > 1) & (its_blk < niter)
+                        conv = bool(conv_vec.any())
+                        n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
+                        errs[p, it:it + n_take] = errs_blk[:n_take]
+                        if cfg.verbose_stream:
+                            for t in range(n_take):
+                                print(f"  [pair {p}] [scale {scale}] iteration {it + t + 1}: "
+                                      f"relative error {float(errs_blk[t]):.6f}", flush=True)
+                        its[p] = it + n_take
+                        if not conv and its[p] < niter:
+                            still.append(p)
+                        elif n_take < k:
+                            stop_inside.setdefault(n_take, []).append(p)
+                        else:
+                            stop_full.append(p)
+                for p in stop_full:
+                    final[p] = nxt[p]
+                if stop_inside:
+                    with span("recompute"):
+                        for n_take, ps in stop_inside.items():
+                            recompute_fn(cur, g, Pairs(ps, b), n_take, nxt, final)
+                cur, nxt = nxt, cur
+                if len(still) != len(active):
+                    active = Pairs(still, b) if still else None
+            with span("compose"):
+                u = compose_batch(u, final, everyone)
+            check_level_field(scale, refine, final, u)
+            traces.append(LevelTrace(scale, torch.from_numpy(errs[:, :niter].copy()),
+                                     torch.from_numpy(its), torch.zeros(b, dtype=torch.int64),
+                                     torch.zeros(b, dtype=torch.int64)))
     return u, traces
 
 
@@ -421,34 +437,40 @@ def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     velocity = torch.zeros_like(u)
     traces = []
     for refine in range(cfg.nrefine):
-        d = derivatives(iref, warp2d(imov, u))
-        g = stack_derivs(d.grad_i, d.it)
-        u_est = torch.zeros_like(u)
-        prev = u_est
-        errs = np.zeros(niter, np.float32)
-        it, conv, nregrid = 0, False, 0
-        while it < niter and not conv:
-            u_new, velocity = step(u_est, velocity, g)
-            s = fluid_metrics(u_new, prev).cpu().numpy()  # the one host read
-            dn, pn = s[0] / n_pix, s[1] / n_pix
-            err = np.float32(0) if pn == 0 else dn / pn
-            errs[it] = err
-            if cfg.verbose_stream:
-                print(f"  [scale {scale}] iteration {it + 1}: "
-                      f"relative error {float(err):.6f}", flush=True)
-            conv = bool(err < tol) and it > 1
-            prev = u_new
-            if not conv and s[2] < threshold:
-                u = compose(u, u_new)
+        with span("solve", scale=scale, refine=refine, nx=u.shape[-2], ny=u.shape[-1]):
+            with span("derive"):
                 d = derivatives(iref, warp2d(imov, u))
                 g = stack_derivs(d.grad_i, d.it)
-                u_new = torch.zeros_like(u_new)
-                nregrid += 1
-            u_est = u_new
-            it += 1
-        u = compose(u, u_est)
-        check_level_field(scale, refine, u_est, u)
-        traces.append(LevelTrace(scale, torch.from_numpy(errs), it, nregrid))
+            u_est = torch.zeros_like(u)
+            prev = u_est
+            errs = np.zeros(niter, np.float32)
+            it, conv, nregrid = 0, False, 0
+            while it < niter and not conv:
+                u_new, velocity = step(u_est, velocity, g)
+                with span("read", site="fluid"):
+                    s = fluid_metrics(u_new, prev).cpu().numpy()  # the one host read
+                    dn, pn = s[0] / n_pix, s[1] / n_pix
+                    err = np.float32(0) if pn == 0 else dn / pn
+                    conv = bool(err < tol) and it > 1
+                errs[it] = err
+                if cfg.verbose_stream:
+                    print(f"  [scale {scale}] iteration {it + 1}: "
+                          f"relative error {float(err):.6f}", flush=True)
+                prev = u_new
+                if not conv and s[2] < threshold:
+                    with span("compose"):
+                        u = compose(u, u_new)
+                    with span("derive"):
+                        d = derivatives(iref, warp2d(imov, u))
+                        g = stack_derivs(d.grad_i, d.it)
+                    u_new = torch.zeros_like(u_new)
+                    nregrid += 1
+                u_est = u_new
+                it += 1
+            with span("compose"):
+                u = compose(u, u_est)
+            check_level_field(scale, refine, u_est, u)
+            traces.append(LevelTrace(scale, torch.from_numpy(errs), it, nregrid))
     return u, traces
 
 
@@ -470,24 +492,28 @@ def _solve_level_demons(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     tol = np.float32(cfg.convergence_tol)
     traces = []
     for refine in range(cfg.nrefine):
-        iaux = warp2d(imov, u)
-        u_est = torch.zeros_like(u)
-        errs = np.zeros(niter, np.float32)
-        it, conv = 0, False
-        while it < niter and not conv:
-            u_est, sums = step(u_est, iref, iaux)
-            s = sums.cpu().numpy()  # the one host read per iteration
-            dn, pn = s[0] / n_pix, s[1] / n_pix
-            err = np.float32(0) if pn == 0 else dn / pn
-            errs[it] = err
-            if cfg.verbose_stream:
-                print(f"  [scale {scale}] iteration {it + 1}: "
-                      f"relative error {float(err):.6f}", flush=True)
-            conv = bool(err < tol) and it > 1
-            it += 1
-        u = compose(u, u_est)
-        check_level_field(scale, refine, u_est, u)
-        traces.append(LevelTrace(scale, torch.from_numpy(errs), it, 0))
+        with span("solve", scale=scale, refine=refine, nx=u.shape[-2], ny=u.shape[-1]):
+            with span("derive"):
+                iaux = warp2d(imov, u)
+            u_est = torch.zeros_like(u)
+            errs = np.zeros(niter, np.float32)
+            it, conv = 0, False
+            while it < niter and not conv:
+                u_est, sums = step(u_est, iref, iaux)
+                with span("read", site="demons"):
+                    s = sums.cpu().numpy()  # the one host read per iteration
+                    dn, pn = s[0] / n_pix, s[1] / n_pix
+                    err = np.float32(0) if pn == 0 else dn / pn
+                    conv = bool(err < tol) and it > 1
+                errs[it] = err
+                if cfg.verbose_stream:
+                    print(f"  [scale {scale}] iteration {it + 1}: "
+                          f"relative error {float(err):.6f}", flush=True)
+                it += 1
+            with span("compose"):
+                u = compose(u, u_est)
+            check_level_field(scale, refine, u_est, u)
+            traces.append(LevelTrace(scale, torch.from_numpy(errs), it, 0))
     return u, traces
 
 
@@ -513,9 +539,10 @@ def _register_impl(iref, imov, cfg: RegConfig, initial_motion=None,
     # reference does (ImageRegistration.cpp:103-121).
     irefs = {0: iref}
     imovs = {0: imov}
-    for s in range(1, cfg.nscales + 1):
-        irefs[s] = downsample_image(iref, dims[s])
-        imovs[s] = downsample_image(imov, dims[s])
+    with span("pyramid"):
+        for s in range(1, cfg.nscales + 1):
+            irefs[s] = downsample_image(iref, dims[s])
+            imovs[s] = downsample_image(imov, dims[s])
 
     if initial_motion is not None:
         # Warm start: the full-resolution field seeds the pyramid, the
@@ -540,13 +567,15 @@ def _register_impl(iref, imov, cfg: RegConfig, initial_motion=None,
                 # motion[nscales] (ImageRegistration.cpp:137-139).
                 u_s = initial_coarse_motion
             elif initial_motion is not None:
-                u_s = downsample_motion(u_full, dims[s])
+                with span("seed"):
+                    u_s = downsample_motion(u_full, dims[s])
             else:
                 # The coarsest level starts from zero: the reference skips
                 # the motion downsample at s == nscales.
                 u_s = torch.zeros((2,) + dims[s], dtype=iref.dtype, device=iref.device)
         elif 0 < s < cfg.nscales:
-            u_s = downsample_motion(u_full, dims[s])
+            with span("seed"):
+                u_s = downsample_motion(u_full, dims[s])
         else:  # s == 0
             u_s = u_full
 
@@ -554,7 +583,11 @@ def _register_impl(iref, imov, cfg: RegConfig, initial_motion=None,
         traces.extend(level_traces)
         if s == cfg.nscales:
             coarse_final = u_s
-        u_full = upsample_motion(u_s, dims[0]) if s > 0 else u_s
+        if s > 0:
+            with span("upsample"):
+                u_full = upsample_motion(u_s, dims[0])
+        else:
+            u_full = u_s
 
     return RegistrationResult(motion=u_full, traces=tuple(traces),
                               coarse_motion=coarse_final)
@@ -590,9 +623,10 @@ def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
         )
     pyr_ref = {0: irefs}
     pyr_mov = {0: imovs}
-    for s in range(1, cfg.nscales + 1):
-        pyr_ref[s] = _each(downsample_image, irefs, dims[s])
-        pyr_mov[s] = _each(downsample_image, imovs, dims[s])
+    with span("pyramid"):
+        for s in range(1, cfg.nscales + 1):
+            pyr_ref[s] = _each(downsample_image, irefs, dims[s])
+            pyr_mov[s] = _each(downsample_image, imovs, dims[s])
     if initial_motions is not None:
         u_full = initial_motions
     else:
@@ -603,7 +637,8 @@ def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
         if s == cfg.nscales and s > 0 and initial_motions is None:
             u_s = torch.zeros((b, 2) + dims[s], dtype=irefs.dtype, device=irefs.device)
         elif s > 0:
-            u_s = _each(downsample_motion, u_full, dims[s])
+            with span("seed"):
+                u_s = _each(downsample_motion, u_full, dims[s])
         else:
             u_s = u_full
         u_s, level_traces = _solve_level_variational_batch(
@@ -611,7 +646,11 @@ def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
         traces.extend(level_traces)
         if s == cfg.nscales:
             coarse_final = u_s
-        u_full = _each(upsample_motion, u_s, dims[0]) if s > 0 else u_s
+        if s > 0:
+            with span("upsample"):
+                u_full = _each(upsample_motion, u_s, dims[0])
+        else:
+            u_full = u_s
     return RegistrationResult(motion=u_full, traces=tuple(traces), coarse_motion=coarse_final)
 
 
@@ -660,6 +699,13 @@ def register(iref, imov, cfg: RegConfig, initial_motion=None,
     Returns:
       ``RegistrationResult(motion=[2, nx, ny], traces=..., coarse_motion=...)``.
     """
+    with entry("register"):
+        return _register(iref, imov, cfg, initial_motion, start_scale, stop_scale,
+                         initial_coarse_motion, device)
+
+
+def _register(iref, imov, cfg, initial_motion, start_scale, stop_scale,
+              initial_coarse_motion, device) -> RegistrationResult:
     dtype = cfg.torch_dtype
     device = resolve_device(device)
     iref = torch.as_tensor(iref, dtype=dtype, device=device)

@@ -25,6 +25,7 @@ from opticalflow2d_tpu_torch.engine.registration import (
     resolve_device,
 )
 from opticalflow2d_tpu_torch.ops.warp import warp2d
+from opticalflow2d_tpu_torch.utils import profiling
 
 
 class OpticalFlow2d:
@@ -60,6 +61,9 @@ class OpticalFlow2d:
         self.device = resolve_device(device)
         self.verbose = verbose
         self._result: Optional[RegistrationResult] = None
+        # The request id of the last register's span, which get_motion and
+        # warp carry (None where no profiler ran).
+        self._request = None
         if verbose:
             print(self._banner())
 
@@ -114,8 +118,10 @@ class OpticalFlow2d:
         # through the module, so the level route and this one share it.
         huge = max(self.dims) > registration._DERIV_BARRIER_MIN_EXTENT
         run = register_phased if huge else register
-        self._result = run(iref, imov, self.config, initial_coarse_motion=warm_coarse,
-                           device=self.device)
+        with profiling.entry("register") as sp:
+            self._request = sp.request
+            self._result = run(iref, imov, self.config, initial_coarse_motion=warm_coarse,
+                               device=self.device)
         if self.verbose:
             for t in self._result.traces:
                 n = t.iterations
@@ -132,16 +138,18 @@ class OpticalFlow2d:
         """The estimated motion as ``[nx, ny, 2]`` (x-plane first)."""
         if self._result is None:
             raise RuntimeError("no registration has been run")
-        return self._result.motion.movedim(0, -1)
+        with profiling.entry("get_motion", request=self._request):
+            return self._result.motion.movedim(0, -1)
 
     def warp(self, image) -> torch.Tensor:
         """Warp an image with the stored motion field
         (``WrapperOpticalFlow2d.cpp:120-137``)."""
         if self._result is None:
             raise RuntimeError("no registration has been run")
-        motion = self._result.motion
-        return warp2d(torch.as_tensor(image, dtype=motion.dtype, device=motion.device),
-                      motion)
+        with profiling.entry("warp", request=self._request):
+            motion = self._result.motion
+            return warp2d(torch.as_tensor(image, dtype=motion.dtype, device=motion.device),
+                          motion)
 
     def close(self):
         """Drop the stored state (the MEX 'close' command)."""

@@ -39,6 +39,7 @@ from opticalflow2d_tpu_torch.engine.registration import (
     resolve_device,
 )
 from opticalflow2d_tpu_torch.parallel.mesh import Mesh
+from opticalflow2d_tpu_torch.utils.profiling import entry
 
 # Methods whose inner loops branch on a host read an iteration (regrids,
 # the exp map), which the JAX package's vmap forces to execute both ways.
@@ -124,6 +125,12 @@ def register_batch(irefs, imovs, cfg: RegConfig, mesh: Optional[Mesh] = None,
       niter]`` and ``iterations``, ``regrids``, ``fallbacks`` as ``[B]``
       tensors, ``coarse_motion [B, 2, ...]``; on the first row's device.
     """
+    with entry("register"):
+        return _register_batch(irefs, imovs, cfg, mesh, impl, initial_motions, device)
+
+
+def _register_batch(irefs, imovs, cfg: RegConfig, mesh: Optional[Mesh], impl: str,
+                    initial_motions, device) -> RegistrationResult:
     if mesh is not None and device is not None:
         raise ValueError("pass a mesh or a device, not both: a mesh's rows name their devices")
     devices = mesh.data_devices() if mesh is not None else [resolve_device(device)]
