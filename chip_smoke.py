@@ -29,7 +29,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the Euler pass at a gate > 0 and a gate of 0. Then the fluid_16k
    path's kernels at its own shapes past 4096, on its tiled pair, with the
    same fields and checks: warp, compose, the fluid metrics and the three
-   fluid kernels at 16384^2 and 8192^2. Then the strip kernels K1-K4 of the
+   fluid kernels at 16384^2 and 8192^2. Then the motion upsample, bit for
+   bit with signed zeros, from the cell's four levels to 4096^2, from
+   8192^2 to 16384^2 and at odd shapes. Then the strip kernels K1-K4 of the
    strip-parallel driver on 4 strips of 4096^2 and of 1000x777 (nxl 250),
    each strip padded by the strip driver's halo exchange, against their plain
    versions and, concatenated, against the dense kernel's rows: the
@@ -157,7 +159,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    over the float32 rate for the matmul routes, bytes over the memory rate
    (each pass of the transform reading and writing its planes) for the
    FFT routes. And the batched kernels on 16 pairs of 1024^2, each beside
-   its plain version and 16 single-pair launches.
+   its plain version and 16 single-pair launches. And the motion upsample
+   from 2048^2 and from 256^2 to 4096^2 beside its plain version, its
+   bound and its launches a call.
 7. Utilities: register_resumable on the 4096^2 blob diffusion run (3a),
    stopped after scale 2 and resumed, bit-equal to register with equal
    counts; utils.kernel_timer on B1 at 4096^2 beside phase 6's median;
@@ -201,6 +205,7 @@ from opticalflow2d_tpu_torch.kernels.fluid_fused import (
 from opticalflow2d_tpu_torch.kernels.logger_norms import (
     fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_batch, logger_norms_batch_ref,
     logger_norms_ref)
+from opticalflow2d_tpu_torch.kernels.upsample import upsample_motion, upsample_motion_ref
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
     compose, compose_batch, compose_batch_ref, compose_ref, warp2d, warp2d_batch,
     warp2d_batch_ref, warp2d_ref)
@@ -468,6 +473,9 @@ KERNELS = {
                       "opticalflow2d_tpu/pallas_kernels/warp_fused.py:173"),
     "logger_norms_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/logger_norms.cu",
                            "opticalflow2d_tpu/pallas_kernels/logger_norms.py:178"),
+    "upsample_motion": ("cuda", "opticalflow2d_tpu_torch/csrc/upsample.cu",
+                        "none: the JAX package upsamples in jnp "
+                        "(opticalflow2d_tpu/ops/resample.py:149)"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
@@ -643,6 +651,8 @@ def phase_kernels(dev) -> dict:
         check_shape(err, dev, gen, *tiled_pair(n, dev), every=False)
         torch.cuda.empty_cache()
     check_wide_offsets(err, dev, gen)
+    torch.cuda.empty_cache()
+    check_upsample(err, dev, gen)
     torch.cuda.empty_cache()
     for nx, ny in STRIP_SHAPES:
         iref, imov = (x[:nx, :ny].contiguous() for x in pair_on(dev, "blob", max(nx, ny)))
@@ -1309,6 +1319,29 @@ def check_wide_offsets(err: dict, dev, gen: torch.Generator) -> None:
         del got
 
 
+# The motion upsample's shapes: the cell's four levels to 4096^2, the
+# 16384^2 path's last, and odd, non-square and one-column ones.
+UPSAMPLE_SHAPES = (((256, 256), (4096, 4096)), ((512, 512), (4096, 4096)),
+                   ((1024, 1024), (4096, 4096)), ((2048, 2048), (4096, 4096)),
+                   ((8192, 8192), (16384, 16384)), ((21, 17), (41, 33)), ((5, 7), (64, 48)),
+                   ((300, 1), (600, 7)))
+
+
+def check_upsample(err: dict, dev, gen: torch.Generator) -> None:
+    """The motion upsample against its plain version bit for bit, signed
+    zeros included, on a field of 3 px with a tenth of its values exact
+    zeros of either sign."""
+    for src, dst in UPSAMPLE_SHAPES:
+        u = torch.randn((2,) + src, generator=gen, device=dev) * 3
+        u.view(-1)[::10] = 0.0
+        u.view(-1)[5::20] = -0.0
+        got, want = upsample_motion(u, dst), upsample_motion_ref(u, dst)
+        check(err, "upsample_motion", got, want, dst, exact=True, source=list(src))
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"upsample_motion {src} -> {dst}: the bits differ")
+        del got, want
+
+
 def demons_fields(dev, gen: torch.Generator, nx: int, ny: int):
     """Fields from ``gen``: noise of 2 px, a displacement of up to +-40 px
     (a smooth field plus noise, so that samples fall inside, on the edges
@@ -1966,6 +1999,7 @@ def phase_times(dev) -> dict:
           "ms": median_ms(lambda: two(*step_args))})
     times.update(strip_times(dev, imov, g, u, v))
     times.update(batch_times(dev))
+    times.update(upsample_times(dev))
     emit({"phase": "times", "demons_tiles": {
         "demons_onepass": k_op.onepass_plan(KW),
         "demons_correspondence": k_df.correspondence_plan(KW),
@@ -1996,6 +2030,29 @@ def phase_times(dev) -> dict:
         emit({"phase": "times", "kernel": name, "instruction_floor": True, **floor,
               "ops_ms": ops_ms, "ms": times[name]["ms"]})
     return times
+
+
+def upsample_times(dev) -> dict:
+    """The motion upsample against its plain version from the cell's finest
+    and coarsest levels to 4096^2, with its launches a call; the bound
+    writes the output (8 B a point) and reads the source (8 B a point) once.
+    The 2048^2 row goes into the kernel table."""
+    rng = np.random.default_rng(SEED + 3)
+    rows = {}
+    for n_in in (2048, 256):
+        u = torch.from_numpy(rng.normal(0, 3, (2, n_in, n_in)).astype(np.float32)).to(dev)
+        dst = (N_MAIN, N_MAIN)
+        kernels.reset_launches()
+        upsample_motion(u, dst)
+        launches = kernels.LAUNCHES["upsample_motion"]
+        row = {"ms": median_ms(lambda: upsample_motion(u, dst)),
+               "plain_ms": median_ms(lambda: upsample_motion_ref(u, dst)),
+               "bound_ms": 8 * (N_MAIN * N_MAIN + n_in * n_in) / PEAK_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "library_ms": None}
+        emit({"phase": "times", "kernel": "upsample_motion", "shape": list(dst),
+              "source": [n_in, n_in], "launches_a_call": launches, **row})
+        rows.setdefault("upsample_motion", row)
+    return rows
 
 
 def batch_times(dev) -> dict:

@@ -29,8 +29,10 @@ from opticalflow2d_tpu_torch.kernels.fluid_fused import (
     fluid_sweep_max_ref)
 from opticalflow2d_tpu_torch.kernels.logger_norms import (
     fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_ref)
+from opticalflow2d_tpu_torch.kernels.upsample import upsample_motion, upsample_motion_ref
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
     compose, compose_ref, warp2d, warp2d_ref)
+from opticalflow2d_tpu_torch.ops import resample
 from opticalflow2d_tpu_torch.solvers.base import derivatives
 from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
 from opticalflow2d_tpu_torch.kernels import diffusion_block as k_diff
@@ -120,6 +122,77 @@ def test_warp_and_compose_match_plain(cuda, shape, scale):
     assert _max_abs(compose(total, disp), compose_ref(total, disp)) <= FIELD_TOL
 
 
+# --- the motion upsample (csrc/upsample.cu) ----------------------------------
+
+# The cell's four levels to 4096^2, and odd, non-square and one-column shapes.
+UPSAMPLE_SHAPES = [((256, 256), (4096, 4096)), ((512, 512), (4096, 4096)),
+                   ((1024, 1024), (4096, 4096)), ((2048, 2048), (4096, 4096)),
+                   ((21, 17), (41, 33)), ((5, 7), (64, 48)), ((300, 1), (600, 7))]
+
+
+def _motion_with_zeros(shape, dev, seed=0):
+    """A motion with negative values and exact zeros of both signs."""
+    rng = np.random.default_rng(seed)
+    u = (rng.standard_normal((2,) + shape) * 3).astype(np.float32)
+    u.flat[::5] = 0.0
+    u.flat[1::7] = -0.0
+    return torch.from_numpy(u).to(dev)
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit, signed zeros included."""
+    torch.cuda.synchronize()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("src,dst", UPSAMPLE_SHAPES)
+def test_upsample_motion_equals_plain_bit_for_bit(cuda, src, dst):
+    """One launch a call, which neither synchronises nor copies from the
+    host, and the plain version's bits."""
+    u = _motion_with_zeros(src, cuda)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = upsample_motion(u, dst)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.LAUNCHES["upsample_motion"] == 1
+    assert _same_bits(got, upsample_motion_ref(u, dst))
+
+
+def test_upsample_motion_of_a_stack_through_each(cuda):
+    """The lockstep batch driver's route: each pair of a ``[B, 2, nx, ny]``
+    stack through ``_each``, one launch a pair."""
+    stack = torch.stack([_motion_with_zeros((21, 17), cuda, seed=s) for s in range(3)])
+    kernels.reset_launches()
+    got = registration._each(resample.upsample_motion, stack, (41, 33))
+    assert kernels.LAUNCHES["upsample_motion"] == 3
+    for p in range(3):
+        assert _same_bits(got[p], upsample_motion_ref(stack[p], (41, 33)))
+
+
+def test_register_launches_one_upsample_a_level(cuda):
+    iref, imov, _, _ = _inputs(1024, 1024, cuda)
+    cfg = RegConfig(method=Method.DIFFUSION, niter=(50,) * 4, nscales=3, nrefine=1,
+                    alpha=0.1)
+    kernels.reset_launches()
+    register(iref, imov, cfg)
+    assert kernels.LAUNCHES["upsample_motion"] == cfg.nscales
+
+
+def test_upsample_motion_rejects_what_the_kernel_does_not_take(cuda):
+    u = _motion_with_zeros((8, 8), cuda)
+    with pytest.raises(ValueError, match="below source"):
+        upsample_motion(u, (4, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample_motion(u.transpose(1, 2), (16, 16))
+    with pytest.raises(TypeError):
+        upsample_motion(u.double(), (16, 16))
+    with pytest.raises(ValueError, match=r"\[2, nx, ny\]"):
+        upsample_motion(u[:1], (16, 16))
+
+
 def test_register_gpu_matches_cpu_and_counts_launches(cuda):
     iref, imov, _, _ = _inputs(96, 64, cuda)
     cfg = RegConfig(method=Method.DIFFUSION, niter=(200, 200), nscales=1, nrefine=2,
@@ -130,7 +203,7 @@ def test_register_gpu_matches_cpu_and_counts_launches(cuda):
     assert [t.iterations for t in gpu.traces] == [t.iterations for t in cpu.traces]
     assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
     assert gpu.motion.device == cuda
-    diffusion_path = ("diffusion_block", "diffusion_step", "warp2d", "compose")
+    diffusion_path = ("diffusion_block", "diffusion_step", "warp2d", "compose", "upsample_motion")
     assert all(kernels.LAUNCHES[name] > 0 for name in diffusion_path), kernels.LAUNCHES
 
 
