@@ -38,6 +38,29 @@ def data_generator(config: dict):
     return importlib.import_module(f"torch_bench.data.{config['data']['kind']}")
 
 
+def stack_shape(pairs: int, dims, *inner) -> tuple:
+    """The shape of a request's field of ``inner + dims`` per pair: as it
+    is for one pair a request, under a leading axis of ``pairs`` for more."""
+    return (() if pairs == 1 else (pairs,)) + tuple(inner) + tuple(dims)
+
+
+def make_pool(config: dict, traffic: dict, seed: int, device) -> list:
+    """The cell's pool of requests, made from the seed by the data
+    generator: entries ``(iref, imov)``, each ``stack_shape(P, dims)`` for
+    the traffic's ``P = pairs_per_request``. Refuses an entry of another
+    shape."""
+    pairs, dims = traffic["pairs_per_request"], tuple(config["dims"])
+    pool = data_generator(config).make_pool(config["data"], dims, traffic["pool"], seed, device,
+                                            pairs)
+    shape = stack_shape(pairs, dims)
+    for i, entry in enumerate(pool):
+        shapes = [tuple(t.shape) for t in entry]
+        if shapes != [shape, shape]:
+            raise ValueError(f"pool entry {i} holds {shapes}; {pairs} pair(s) a request of "
+                             f"{list(dims)} need (iref, imov) of {shape} each")
+    return pool
+
+
 def entry(traffic: dict):
     return importlib.import_module(f"torch_bench.entries.{traffic['entry']}")
 

@@ -1,6 +1,12 @@
 """The comparison that decides a run's ``correct``: the answers of sampled
 requests of the window against the plain reference's for the same pairs.
 
+A request holds ``P`` pairs (the traffic's ``pairs_per_request``): for
+``P`` 1 an entry is ``(iref, imov)`` and an answer ``(motion [2, nx, ny],
+warped [nx, ny], solves)``; for more, every tensor has a leading pair axis
+and ``solves`` lists each pair's solves in turn, pair 0 first, the same
+number for each. Every pair of a checked request is compared on its own.
+
 For each checked pair the numbers are the largest gap between the
 program's motion field and the reference's (px), between the warped
 moving images (intensity, images in [0, 1]), and between the iteration and
@@ -37,6 +43,33 @@ def reference_answer(config: dict, iref, imov, control: bool = False):
     motion, solves = ref.register(store(iref), store(imov), config["settings"], store)
     warped = common.warp(store(imov), motion)
     return motion, warped, [tuple(s) for s in solves]
+
+
+def check_answer(answer, pairs: int, dims) -> None:
+    """Refuse an answer that does not hold ``pairs`` pairs of ``dims``."""
+    motion, warped, solves = answer
+    shapes = (tuple(motion.shape), tuple(warped.shape))
+    if (shapes != (cells.stack_shape(pairs, dims, 2), cells.stack_shape(pairs, dims))
+            or not solves or len(solves) % pairs):
+        raise ValueError(f"an answer of {pairs} pair(s) of {list(dims)} holds motion and warped "
+                         f"of {shapes[0]} and {shapes[1]} and {len(solves)} solves")
+
+
+def split(request: tuple, pairs: int) -> list:
+    """The tuple of each pair of a request, pair 0 first: an entry ``(iref,
+    imov)`` or an answer ``(motion, warped, solves)``. For one pair a
+    request, ``request`` itself; for more, pair ``i``'s slice of each
+    tensor and the ``i``-th of ``pairs`` equal runs of a list."""
+    if pairs == 1:
+        return [request]
+
+    def part(x, i):
+        if isinstance(x, torch.Tensor):
+            return x[i]
+        n = len(x) // pairs
+        return x[i * n:(i + 1) * n]
+
+    return [tuple(part(x, i) for x in request) for i in range(pairs)]
 
 
 def gaps(answer, expected) -> dict:

@@ -16,8 +16,11 @@ import torch
 from torch_bench.data import synth
 
 
-def make_pool(data: dict, dims, count: int, seed: int, device) -> list:
-    """``count`` pairs ``(iref, imov)`` of ``dims``, float32 on ``device``."""
+def make_pool(data: dict, dims, count: int, seed: int, device, pairs: int = 1) -> list:
+    """``count`` pairs ``(iref, imov)`` of ``dims``, float32 on ``device``:
+    one pair a request (``pairs`` 1)."""
+    if pairs != 1:
+        raise ValueError(f"nuclei_texture makes one pair a request, not {pairs}")
     gen = torch.Generator(device=device).manual_seed(seed)
     nx, ny = dims
     lo, hi = data["blob_sigma_px"]

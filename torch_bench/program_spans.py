@@ -41,6 +41,7 @@ class ProgramSpans:
 
     def __init__(self, records: list):
         self.names = [r[0] for r in records]
+        self.opens = [r[1] for r in records]
         self.parents = [r[3] for r in records]
         ends = [r[1] + r[2] if r[2] is not None else float("inf") for r in records]
         children = [[] for _ in records]
@@ -94,6 +95,11 @@ class ProgramSpans:
         if b - a - covered > 1e-12:
             out["outside"] = out.get("outside", 0.0) + (b - a - covered)
         return out
+
+    def count(self, name: str, window: tuple) -> int:
+        """The spans named ``name`` that open inside ``window``."""
+        w0, w1 = window
+        return sum(1 for n, t in zip(self.names, self.opens) if n == name and w0 <= t <= w1)
 
     def self_seconds(self, names, window: tuple) -> float:
         """Seconds of ``window`` whose innermost span is one of ``names``."""

@@ -7,9 +7,10 @@
 For each of ``--seeds`` it runs the cell as ``run.py`` does, with a window
 of ``--seconds`` (the program's readings: sound runs give the lower
 reading of each number). For each of ``--control-seeds`` it makes the
-same pool, checks the same pairs, and compares the control (the reference
-with its fields stored in bfloat16, ``correct.py``) with the reference:
-the upper reading. One JSON line a reading. Needs a CUDA device.
+same pool, checks the same pairs (every pair of a stacked request), and
+compares the control (the reference with its fields stored in bfloat16,
+``correct.py``) with the reference: the upper reading. One JSON line a
+reading. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,14 +29,14 @@ def control_readings(config: dict, traffic: dict, seed: int, device) -> dict:
 
     from torch_bench import cells, correct
 
-    pool = cells.data_generator(config).make_pool(config["data"], tuple(config["dims"]),
-                                                  traffic["pool"], seed, device)
+    pool = cells.make_pool(config, traffic, seed, device)
     checked = np.random.default_rng(seed).permutation(len(pool))[:traffic["check_requests"]]
     readings = []
     for p in sorted(checked.tolist()):
-        expected = correct.reference_answer(config, *pool[p])
-        readings.append(correct.gaps(correct.reference_answer(config, *pool[p], control=True),
-                                     expected))
+        for iref, imov in correct.split(pool[p], traffic["pairs_per_request"]):
+            expected = correct.reference_answer(config, iref, imov)
+            readings.append(correct.gaps(correct.reference_answer(config, iref, imov,
+                                                                  control=True), expected))
     return correct.worst(readings)
 
 

@@ -5,16 +5,18 @@
 
 One run serves one cell of ``BENCHMARK.json`` on one CUDA device: it makes
 the cell's pool of image pairs on the device from the seed, opens the
-cell's entry (one session), warms it up on the pool, then runs a closed
-loop of one client for ``--seconds``: a request is one pair, and the
-request in flight when the time is up is finished and counted. It prints,
+cell's entry, warms it up on the pool, then runs a closed loop of one
+client for ``--seconds``: a request is one pair, or a stack of the
+traffic's ``pairs_per_request`` pairs, and the request in flight when the
+time is up is finished and counted. It prints,
 as the last line of its standard output, one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the end-to-end metrics, or with
 ``--trace 1`` the per-layer ones, read under ``torch.profiler``),
 ``device``, ``setup`` (the marks of set-up's parts and the seconds the
 program's kernel library took to build in this run), with ``--trace 1``
 ``breakdown``, and last ``check``: each number the correctness comparison
-took, beside its limit. Without a CUDA device it prints no result and
+took, beside its limit. Without a CUDA device, or where the process has
+loaded JAX or the JAX package by the window's end, it prints no result and
 exits with 1.
 """
 
@@ -31,6 +33,8 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+# Top-level modules the run may not hold: the port runs without JAX.
+NOT_LOADED = ("jax", "jaxlib", "flax", "opticalflow2d_tpu")
 
 
 def process_age() -> float:
@@ -72,12 +76,16 @@ class Window:
         self.events = None
 
 
-def serve(client, pool, seconds: float, checked: set, sync, prof, trace_seconds: float) -> Window:
-    """The closed loop: one client, one pair a request, the pool in turn,
-    until ``seconds`` have passed at the end of a request. ``prof``, when
-    given and started, is stopped at the end of the first request that
-    ends ``trace_seconds`` into the window."""
+def serve(client, pool, seconds: float, checked: set, sync, prof, trace_seconds: float,
+          pairs: int, dims) -> Window:
+    """The closed loop: one client, one pool entry a request (``pairs``
+    pairs of ``dims``), the pool in turn, until ``seconds`` have passed at
+    the end of a request; an answer of another shape counts as failed.
+    ``prof``, when given and started, is stopped at the end of the first
+    request that ends ``trace_seconds`` into the window."""
     from torch.profiler import record_function
+
+    from torch_bench import correct
 
     w = Window()
     t0 = time.perf_counter()
@@ -88,6 +96,7 @@ def serve(client, pool, seconds: float, checked: set, sync, prof, trace_seconds:
             with record_function("bench.request"):
                 answer = client.request(*pool[p])
             sync()
+            correct.check_answer(answer, pairs, dims)
         except Exception:  # a failed request counts against those attempted
             log(traceback.format_exc())
             answer = None
@@ -128,17 +137,20 @@ def profile_of(w: Window, config: dict, block_k: int, kind: str):
                          library_kernels=trace.library_kernels(ROOT), peaks=peaks)
 
 
-def check(config: dict, pool, w: Window) -> tuple:
-    """``(correct, check)``: the kept answers against the plain reference,
-    once the window has closed and the program's state is freed."""
+def check(config: dict, pairs: int, pool, w: Window) -> tuple:
+    """``(correct, check)``: every pair of the kept answers against the
+    plain reference, run pair by pair once the window has closed and the
+    program's state is freed; each number the largest over the pairs."""
     from torch_bench import correct, stats
 
     readings = []
     for p in sorted(w.kept):
-        readings.append(correct.gaps(w.kept[p], correct.reference_answer(config, *pool[p])))
-        log(f"pair {p}: {readings[-1]}, SSD reduction "
-            f"{stats.ssd_reduction(pool[p][0], pool[p][1], w.kept[p][1]):.6f}")
-    log(f"pairs checked: {len(readings)} (at least 1)")
+        for i, (answer, (iref, imov)) in enumerate(zip(correct.split(w.kept[p], pairs),
+                                                        correct.split(pool[p], pairs))):
+            readings.append(correct.gaps(answer, correct.reference_answer(config, iref, imov)))
+            log(f"pair {p if pairs == 1 else f'{p}.{i}'}: {readings[-1]}, SSD reduction "
+                f"{stats.ssd_reduction(iref, imov, answer[1]):.6f}")
+    log(f"pairs checked: {len(readings)}, in {len(w.kept)} request(s) of {pairs} (at least 1)")
     numbers = {n: finite(v) for n, v in correct.worst(readings).items()}
     limits = config["limits"]
     ok = bool(readings) and w.failed == 0 and correct.judge(numbers, limits)
@@ -159,6 +171,19 @@ def build_seconds(pool_done: float) -> float:
     return max(max(written) - pool_done, 0.0) if written else 0.0
 
 
+def end_to_end(w: Window, pairs: int, memory_peak: int, setup_s: float) -> dict:
+    """The end-to-end metrics' values: pairs completed (requests that did
+    not fail, ``pairs`` each) over the window's seconds, the 90th
+    percentile of the requests' latencies (a failed one's infinite), the
+    device memory's peak over the window in GiB, and set-up's seconds."""
+    from torch_bench import stats
+
+    return {"pairs_per_s": (w.attempted - w.failed) * pairs / w.seconds,
+            "latency_p90_s": stats.percentile(w.latencies, 90),
+            "peak_mem_gib": memory_peak / 2 ** 30,
+            "setup_s": setup_s}
+
+
 def run_cell(spec: dict, workload: str, config: dict, traffic: dict, seed: int, seconds: float,
              trace_on: bool, device) -> dict:
     """Serve the cell for ``seconds`` on ``device`` and return the result
@@ -172,8 +197,8 @@ def run_cell(spec: dict, workload: str, config: dict, traffic: dict, seed: int, 
     cuda = device.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
     marks = [("imports", process_age())]
-    pool = cells.data_generator(config).make_pool(config["data"], tuple(config["dims"]),
-                                                  traffic["pool"], seed, device)
+    pairs = traffic["pairs_per_request"]
+    pool = cells.make_pool(config, traffic, seed, device)
     sync()
     marks.append(("pool", process_age()))
     client = cells.entry(traffic).Client(config, device)
@@ -197,7 +222,8 @@ def run_cell(spec: dict, workload: str, config: dict, traffic: dict, seed: int, 
         prof.start()
         client.request(*pool[0])
         sync()
-    w = serve(client, pool, seconds, checked, sync, prof, traffic["trace_seconds"] or seconds)
+    w = serve(client, pool, seconds, checked, sync, prof, traffic["trace_seconds"] or seconds,
+              pairs, config["dims"])
     memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     block_k = client.block_k
     client.close()
@@ -208,7 +234,8 @@ def run_cell(spec: dict, workload: str, config: dict, traffic: dict, seed: int, 
         + ", ".join(f"{name} {t:.2f}" for name, t in marks) + f", window {setup_s:.2f}")
     log(f"kernel library built in this run: {build_s:.2f} s of set-up"
         if build_s else "kernel library built in this run: no (loaded as built before)")
-    log(f"requests in the window: {w.attempted} ({w.failed} failed) in {w.seconds:.6f} s, "
+    log(f"requests in the window: {w.attempted} ({w.failed} failed) of {pairs} pair(s) each "
+        f"in {w.seconds:.6f} s, "
         f"latency median {stats.percentile(w.latencies, 50):.6f} s")
 
     dev = {"platform": "gpu" if cuda else "cpu",
@@ -231,17 +258,14 @@ def run_cell(spec: dict, workload: str, config: dict, traffic: dict, seed: int, 
             f"{len(p.device)} device operations, {len(p.runtime)} runtime calls; "
             f"idle by host span: {trace.idle_by_span(p)}")
     else:
-        values = {"pairs_per_s": (w.attempted - w.failed) / w.seconds,
-                  "latency_p90_s": stats.percentile(w.latencies, 90),
-                  "peak_mem_gib": memory_peak / 2 ** 30,
-                  "setup_s": setup_s}
+        values = end_to_end(w, pairs, memory_peak, setup_s)
         for m in cells.end_to_end_metrics(spec, workload):
             metrics[m["name"]] = {"value": finite(values[m["name"]]), "unit": m["unit"]}
     result["metrics"] = metrics
     result["device"] = dev
     # Set-up's parts, outside ``metrics``: ``setup_s`` holds the build.
     result["setup"] = {"build_s": build_s, **{name: t for name, t in marks}}
-    result["correct"], result["check"] = check(config, pool, w)
+    result["correct"], result["check"] = check(config, pairs, pool, w)
     return result
 
 
@@ -267,6 +291,10 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     result = run_cell(spec, args.workload, config, traffic, args.seed, args.seconds,
                       bool(args.trace), device)
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & set(NOT_LOADED))
+    if loaded:
+        log(f"the run loaded {', '.join(loaded)}: the port runs without JAX; no result")
+        return 1
     for name, c in result["check"].items():
         log(f"check {name} {c['value']!r} limit {c['limit']!r}")
     print(json.dumps(result), flush=True)

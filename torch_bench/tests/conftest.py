@@ -26,9 +26,11 @@ def small_cell():
         config_name, traffic_name = workload.split(".")
         config = json.loads((cells.BENCH / "configs" / f"{config_name}.json").read_text())
         traffic = json.loads((cells.BENCH / "traffic" / f"{traffic_name}.json").read_text())
-        if config["dims"] == [4096, 4096]:
+        if max(config["dims"]) > 128:
             config["dims"] = [96, 80]
             config["settings"].update(nscales=2, niter=[60, 60, 60])
+        if traffic["pairs_per_request"] > 1:
+            traffic["pairs_per_request"] = 3
         traffic.update(pool=4, check_requests=2, warmup_requests=1)
         return spec, workload, config, traffic
 
