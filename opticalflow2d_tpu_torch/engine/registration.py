@@ -32,6 +32,7 @@ import torch
 
 from opticalflow2d_tpu_torch.config import Method, RegConfig
 from opticalflow2d_tpu_torch.kernels._build import Pairs
+from opticalflow2d_tpu_torch.kernels.derive import derive
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block,
     diffusion_block_batch,
@@ -116,8 +117,7 @@ def _solve_level_blocked(u, iref, imov, cfg: RegConfig, niter: int,
     for refine in range(cfg.nrefine):
         with span("solve", scale=scale, refine=refine, nx=u.shape[-2], ny=u.shape[-1]):
             with span("derive"):
-                d = derivatives(iref, warp2d(imov, u))
-                g = stack_derivs(d.grad_i, d.it)
+                g = derive(iref, warp2d(imov, u))
             u_est = torch.zeros_like(u)
             errs = np.zeros(nb * k, np.float32)
             it, conv = 0, False
@@ -439,8 +439,7 @@ def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     for refine in range(cfg.nrefine):
         with span("solve", scale=scale, refine=refine, nx=u.shape[-2], ny=u.shape[-1]):
             with span("derive"):
-                d = derivatives(iref, warp2d(imov, u))
-                g = stack_derivs(d.grad_i, d.it)
+                g = derive(iref, warp2d(imov, u))
             u_est = torch.zeros_like(u)
             prev = u_est
             errs = np.zeros(niter, np.float32)
@@ -458,11 +457,11 @@ def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
                           f"relative error {float(err):.6f}", flush=True)
                 prev = u_new
                 if not conv and s[2] < threshold:
-                    with span("compose"):
-                        u = compose(u, u_new)
-                    with span("derive"):
-                        d = derivatives(iref, warp2d(imov, u))
-                        g = stack_derivs(d.grad_i, d.it)
+                    with span("regrid", scale=scale, nx=u.shape[-2], ny=u.shape[-1]):
+                        with span("compose"):
+                            u = compose(u, u_new)
+                        with span("derive"):
+                            g = derive(iref, warp2d(imov, u))
                     u_new = torch.zeros_like(u_new)
                     nregrid += 1
                 u_est = u_new

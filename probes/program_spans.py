@@ -12,8 +12,10 @@ spans, with the share of the latter that a span below the entry covers;
 the ten longest idle gaps, each named by the program span that covers most
 of it; the clock checks (each B1 launch starts after its ``solve`` opened,
 each ``read`` ends no earlier than the B1 launch it waited on); the spans
-a request; and the recorder's cost a span, off and on, timed on this
-host. Needs one CUDA card.
+a request; the device seconds by operation (the 25 largest, by the first
+100 characters of the name); the traced requests' solves; and the
+recorder's cost a span, off and on, timed on this host. Needs one CUDA
+card.
 """
 import argparse
 import bisect
@@ -133,6 +135,9 @@ def analyse(p, result: dict) -> dict:
             device_margin.append(syncs[j][1] - kern[1])
             when.append(kern[1] - p.window[0])
     n_requests = len(p.solves)
+    by_kernel = {}
+    for n, _, d, _ in p.device:
+        by_kernel[n[:100]] = by_kernel.get(n[:100], 0.0) + d
     names = {}
     for _, r in inside:
         names[r[0]] = names.get(r[0], 0) + 1
@@ -157,6 +162,8 @@ def analyse(p, result: dict) -> dict:
         "sync_end_minus_b1_end_q": quantiles(device_margin),
         "sync_end_minus_b1_end_by_third_median_s": thirds(when, device_margin),
         "spans_per_request": {n: c / n_requests for n, c in sorted(names.items())},
+        "device_s_by_op": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]),
+        "solves": p.solves,
     }
 
 

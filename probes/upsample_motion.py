@@ -1,8 +1,9 @@
-"""Where the program's memory peaks in a request of ``slide_hs_4096.pair``,
-and what the level loop's motion upsample costs on the card, for one
-checkout.
+"""Where the program's memory peaks in a request of a cell
+(``slide_hs_4096.pair`` unless ``--workload`` names another of one pair a
+request), and what the level loop's motion upsample costs on the card, for
+one checkout.
 
-    python3 probes/upsample_motion.py --seed N --out FILE [--root DIR]
+    python3 probes/upsample_motion.py --seed N --out FILE [--root DIR] [--workload NAME]
 
 ``--root`` imports the program and the benchmark from another checkout (a
 parent unpacked with ``git archive`` under ``build/parent/``); the default
@@ -88,6 +89,7 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=str(ROOT))
     parser.add_argument("--seed", type=int, required=True)
     parser.add_argument("--requests", type=int, default=4)
+    parser.add_argument("--workload", default="slide_hs_4096.pair")
     parser.add_argument("--times", action="store_true")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
@@ -109,7 +111,7 @@ def main(argv=None) -> int:
     torch.set_num_threads(1)
     dev = torch.device("cuda", 0)
     spec = cells.load_spec()
-    _, config, traffic = cells.find(spec, "slide_hs_4096.pair")
+    _, config, traffic = cells.find(spec, args.workload)
     pool = cells.data_generator(config).make_pool(config["data"], tuple(config["dims"]),
                                                   traffic["pool"], args.seed, dev)
     client = cells.entry(traffic).Client(config, dev)
@@ -155,7 +157,7 @@ def main(argv=None) -> int:
     device_ms = 1e3 * sum(d for _, _, d, _ in device)
     syncs = sum(1 for n, *_ in runtime if n in trace.SYNC_CALLS)
     line = {
-        "root": str(root), "seed": args.seed, "card": card(),
+        "root": str(root), "workload": args.workload, "seed": args.seed, "card": card(),
         "requests": args.requests,
         "peak_gib": max(peak_by_span.values()),
         "peak_by_span_gib": peak_by_span,

@@ -18,6 +18,7 @@ from _torch_helpers import npy
 from opticalflow2d_tpu_torch import Method, RegConfig, kernels, register
 from opticalflow2d_tpu_torch.kernels import _build
 from opticalflow2d_tpu_torch.kernels import demons_fused, demons_onepass
+from opticalflow2d_tpu_torch.kernels.derive import derive, derive_ref
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block, diffusion_block_ref, stack_derivs)
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
@@ -191,6 +192,63 @@ def test_upsample_motion_rejects_what_the_kernel_does_not_take(cuda):
         upsample_motion(u.double(), (16, 16))
     with pytest.raises(ValueError, match=r"\[2, nx, ny\]"):
         upsample_motion(u[:1], (16, 16))
+
+
+# --- the level's derivatives (csrc/derive.cu) --------------------------------
+
+# Both border rows and columns alone (2 x 2), rows of one and of four
+# points a thread, ragged last blocks, the slide cell's 4096^2 and the
+# fluid cell's 16384^2 level.
+DERIVE_SHAPES = [(2, 2), (2, 5), (3, 4), (5, 7), (33, 17), (31, 64), (1000, 777),
+                 (257, 4096), (4096, 4096), (16384, 16384)]
+
+
+@pytest.mark.parametrize("shape", DERIVE_SHAPES)
+def test_derive_equals_plain_bit_for_bit(cuda, shape):
+    """One launch a call, which neither synchronises nor copies from the
+    host, and the plain version's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    iref = torch.rand(shape, generator=gen, device=cuda)
+    warped = torch.rand(shape, generator=gen, device=cuda)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = derive(iref, warped)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.LAUNCHES["derive"] == 1
+    assert _same_bits(got, derive_ref(iref, warped))
+
+
+def test_derive_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(ValueError, match="nx, ny >= 2"):
+        derive(x[:1], x[:1])
+    with pytest.raises(TypeError):
+        derive(x.double(), x.double())
+    with pytest.raises(ValueError, match="shape"):
+        derive(x[:4], x)
+
+
+def test_fluid_register_derives_once_a_solve_and_once_a_regrid(cuda):
+    """The fluid driver launches the derivatives' kernel for each solve's
+    force and again at each regrid, and gives the CPU's counts."""
+    from torch_bench.data import nuclei_texture
+
+    data = {"blob_sigma_px": [3, 8], "blobs_per_mpix": 2500, "amplitude": [0.3, 1.0],
+            "displacement_peak_px": [16.0, 32.0], "displacement_grid": 8}
+    iref, imov = nuclei_texture.make_pool(data, (192, 256), 1, 2 ** 31 + 7, cuda)[0]
+    cfg = RegConfig(method=Method.FLUID, niter=(25,) * 3, nscales=2, nrefine=1, mu=0.25,
+                    lam=0.0)
+    kernels.reset_launches()
+    result = register(iref, imov, cfg)
+    regrids = sum(t.regrids for t in result.traces)
+    assert regrids > 0
+    assert kernels.LAUNCHES["derive"] == len(result.traces) + regrids
+    on_cpu = register(iref.cpu(), imov.cpu(), cfg, device="cpu")
+    assert [(t.iterations, t.regrids) for t in result.traces] == \
+        [(t.iterations, t.regrids) for t in on_cpu.traces]
 
 
 def test_register_gpu_matches_cpu_and_counts_launches(cuda):

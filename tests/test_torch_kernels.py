@@ -23,6 +23,7 @@ from opticalflow2d_tpu.pallas_kernels.warp_fused import compose_pallas, warp2d_p
 from opticalflow2d_tpu.solvers.base import derivatives as jderivatives
 from opticalflow2d_tpu_torch import kernels
 from opticalflow2d_tpu_torch.kernels import _build
+from opticalflow2d_tpu_torch.kernels.derive import derive
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block, diffusion_block_ref, stack_derivs)
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
@@ -154,3 +155,24 @@ def test_stack_derivs(rng):
     b = rng.standard_normal((5, 4)).astype(np.float32)
     assert_close(stack_derivs(tt(a), tt(b)), jstack_derivs(jnp.asarray(a), jnp.asarray(b)), 0)
     assert npy(stack_derivs(tt(a), tt(b))).shape == (3, 5, 4)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (5, 7), (24, 20)])
+def test_derive_plain_version_matches_jax(shape, rng):
+    """On the CPU ``derive`` is the plain version, launches nothing, and
+    gives the JAX package's derivatives packed as the kernels' force input."""
+    iref = rng.random(shape).astype(np.float32)
+    warped = rng.random(shape).astype(np.float32)
+    jd = jderivatives(jnp.asarray(iref), jnp.asarray(warped))
+    before = dict(kernels.LAUNCHES)
+    got = derive(tt(iref), tt(warped))
+    assert kernels.LAUNCHES == before
+    assert_close(got, jstack_derivs(jd.grad_i, jd.it), 0)
+
+
+def test_derive_raises_on_other_devices():
+    x = torch.zeros((8, 8), device="meta")
+    with pytest.raises(ValueError):
+        derive(x, x)
+    with pytest.raises(ValueError):
+        derive(torch.zeros((8, 8)), x)

@@ -139,11 +139,40 @@ def test_fluid_and_demons_read_once_an_iteration(method, regparams, site):
         i = recs.index(s)
         reads = _children(recs, i, "read")
         assert len(reads) == t.iterations and all(r[5] == {"site": site} for r in reads)
-        # A regrid composes and derives again, inside the solve.
-        assert len(_children(recs, i, "derive")) == 1 + t.regrids
-        assert len(_children(recs, i, "compose")) == 1 + t.regrids
+        # A regrid composes and derives again, inside a regrid span of the
+        # solve; the solve's own derive and compose stay its children.
+        assert len(_children(recs, i, "derive")) == 1
+        assert len(_children(recs, i, "compose")) == 1
+        regrids = _children(recs, i, "regrid")
+        assert len(regrids) == t.regrids
+        for r in regrids:
+            j = recs.index(r)
+            assert len(_children(recs, j, "compose")) == len(_children(recs, j, "derive")) == 1
     if method == T.Method.FLUID:
         assert sum(t.regrids for t in result.traces) > 0
+
+
+def test_a_fluid_regrid_records_one_regrid_span():
+    """Each regrid of a fluid solve is one ``regrid`` span holding its
+    compose and its derive, with the level's scale and size; without a
+    profiler the same run records nothing; a diffusion run has no regrid."""
+    iref, imov = tiled_pair(*SHAPE)
+    sess = _session(T.Method.FLUID, (0.25, 0.0), niter=(12, 8, 6), regrid_threshold=0.95)
+    (result, _, _), recs, _ = _traced(lambda: _request(sess, iref, imov))
+    regrids = _named(recs, "regrid")
+    assert len(regrids) == sum(t.regrids for t in result.traces) > 0
+    for r in regrids:
+        j = recs.index(r)
+        assert [c[0] for c in _children(recs, j) if c[0] != "gc"] == ["compose", "derive"]
+        solve = recs[r[3]]
+        assert solve[0] == "solve"
+        assert r[5] == {k: solve[5][k] for k in ("scale", "nx", "ny")}
+    profiling.clear()
+    again = _request(sess, iref, imov)[0]
+    assert sum(t.regrids for t in again.traces) == len(regrids)
+    assert profiling.records() == []
+    _, recs, _ = _traced(lambda: _request(_session(), iref, imov))
+    assert not _named(recs, "regrid")
 
 
 def test_nothing_is_recorded_without_a_profiler():
