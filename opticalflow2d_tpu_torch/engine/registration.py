@@ -25,6 +25,7 @@ magnitude, ``err = 0`` when the previous norm is zero.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -99,6 +100,45 @@ class RegistrationResult(NamedTuple):
     coarse_motion: torch.Tensor | None = None
 
 
+# Blocks ``_solve_level_blocked`` launched ahead of the host's stop decision,
+# and those of them it dropped because the stop landed in the block before.
+LOOKAHEAD = {"ahead": 0, "discarded": 0}
+
+
+class _HostSums:
+    """The host's copy of a block's Logger sums ``[k, 2]``. On CUDA a pinned
+    buffer filled by an asynchronous copy with an event recorded after it,
+    so that a read waits for that block and not for one queued behind it;
+    the buffer and the event are made once per device and ``k`` in each
+    thread (pinning host memory in the loop would stall it). On the CPU a
+    plain copy."""
+
+    _cache = threading.local()
+
+    def __init__(self, k: int, like: torch.Tensor):
+        self.event = self.stream = None
+        if like.device.type != "cuda":
+            self.buf = torch.empty((k, 2), dtype=like.dtype)
+            return
+        made = self._cache.__dict__.setdefault("made", {})
+        key = (like.device, k, like.dtype)
+        if key not in made:
+            made[key] = (torch.empty((k, 2), dtype=like.dtype, pin_memory=True),
+                         torch.cuda.Event())
+        self.buf, self.event = made[key]
+        self.stream = torch.cuda.current_stream(like.device)
+
+    def enqueue(self, sums: torch.Tensor) -> None:
+        self.buf.copy_(sums, non_blocking=self.event is not None)
+        if self.event is not None:
+            self.event.record(self.stream)
+
+    def read(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.buf.numpy()
+
+
 def _solve_level_blocked(u, iref, imov, cfg: RegConfig, niter: int,
                          scale: int, k: int, block_fn, recompute_fn):
     """Variational level driver over a temporal-blocked kernel: ``k`` solver
@@ -107,6 +147,12 @@ def _solve_level_blocked(u, iref, imov, cfg: RegConfig, niter: int,
     them once a block, and when the stop (or the niter cap) lands inside a
     block it recomputes the taken steps from the block's start with
     ``recompute_fn``.
+
+    The host runs one block behind the device: block n + 1 is launched on
+    block n's output before block n's sums are read, unless block n reaches
+    the niter cap, so the device computes it while the host decides. When
+    the stop lands in block n, block n + 1 is dropped unread (``discard``)
+    and block n's field is taken as without it; ``LOOKAHEAD`` counts both.
 
     ``block_fn(u, g) -> (u_after_k, sums [k, 2])``;
     ``recompute_fn(u, g, n) -> u`` gives the same field as the first ``n``
@@ -120,11 +166,18 @@ def _solve_level_blocked(u, iref, imov, cfg: RegConfig, niter: int,
                 g = derive(iref, warp2d(imov, u))
             u_est = torch.zeros_like(u)
             errs = np.zeros(nb * k, np.float32)
-            it, conv = 0, False
-            while it < niter and not conv:
-                u_blk, sums = block_fn(u_est, g)
+            host = _HostSums(k, u)
+            it = 0
+            queued = block_fn(u_est, g) if niter > 0 else None
+            while queued is not None:
+                u_blk, sums = queued
+                host.enqueue(sums)
+                queued = None
+                if it + k < niter:
+                    queued = block_fn(u_blk, g)
+                    LOOKAHEAD["ahead"] += 1
                 with span("read", site="block"):
-                    s = sums.cpu().numpy()  # the one host read per block
+                    s = host.read()  # the one host read per block
                     prev = s[:, 1]
                     errs_blk = np.where(prev == 0, np.float32(0),
                                         s[:, 0] / np.where(prev == 0, np.float32(1), prev))
@@ -132,6 +185,10 @@ def _solve_level_blocked(u, iref, imov, cfg: RegConfig, niter: int,
                     conv_vec = (errs_blk < tol) & (its > 1) & (its < niter)
                     conv = bool(conv_vec.any())
                     n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
+                if conv and queued is not None:
+                    with span("discard"):
+                        queued = None
+                    LOOKAHEAD["discarded"] += 1
                 if n_take < k:
                     with span("recompute"):
                         u_est = recompute_fn(u_est, g, n_take)

@@ -11,8 +11,10 @@ program span, over the window and inside the benchmark's ``register``
 spans, with the share of the latter that a span below the entry covers;
 the ten longest idle gaps, each named by the program span that covers most
 of it; the clock checks (each B1 launch starts after its ``solve`` opened,
-each ``read`` ends no earlier than the B1 launch it waited on); the spans
-a request; the device seconds by operation (the 25 largest, by the first
+each ``read`` ends no earlier than the B1 launch it waited on; a block
+launched ahead and dropped is skipped); the spans a request; the level
+loop's idle and reads a request by scale; the 20 costliest runtime calls a
+request (count and host ms); the device seconds by operation (the 25 largest, by the first
 100 characters of the name); the traced requests' solves; and the
 recorder's cost a span, off and on, timed on this host. Needs one CUDA
 card.
@@ -114,18 +116,26 @@ def analyse(p, result: dict) -> dict:
             reads.setdefault(r[3], []).append(r)
     kernels = sorted((s, s + d) for n, s, d, k in p.device
                      if k == "kernel" and trace.kernel_base(n) in b1.KERNELS)
+    # A block the loop launched ahead and dropped (a ``discard`` span in
+    # its solve) follows the solve's last read.
+    discards = {}
+    for i, r in inside:
+        if r[0] == "discard":
+            discards[r[3]] = discards.get(r[3], 0) + 1
     pairs, k = [], 0
     for i, s in solves:
         for r in reads.get(i, []):
             if k < len(kernels):
                 pairs.append((s, r, kernels[k]))
             k += 1
+        k += discards.get(i, 0)
     start_margin = [kern[0] - s[1] for s, _, kern in pairs]
     end_margin = [r[1] + r[2] - kern[1] for _, r, kern in pairs]
     # Each read's margin split at the stream sync inside it: read end less
     # sync end (host clock against host clock) and sync end less B1's end
     # (the profiler's host clock against its device clock).
-    syncs = sorted((s, s + d) for n, s, d in p.runtime if n == "cudaStreamSynchronize")
+    syncs = sorted((s, s + d) for n, s, d in p.runtime
+                   if n in ("cudaStreamSynchronize", "cudaEventSynchronize"))
     sync_starts = [a for a, _ in syncs]
     host_margin, device_margin, when = [], [], []
     for _, r, kern in pairs:
@@ -135,6 +145,29 @@ def analyse(p, result: dict) -> dict:
             device_margin.append(syncs[j][1] - kern[1])
             when.append(kern[1] - p.window[0])
     n_requests = len(p.solves)
+    # The level loop's idle (innermost span in LOOP) by the scale of its
+    # solve, and the reads a request at each scale.
+    loop_by_scale, reads_by_scale = {}, {}
+    scale_of = {i: r[5]["scale"] for i, r in solves}
+    for a, b in gaps:
+        j = max(bisect.bisect_right(spans.starts, a) - 1, 0)
+        while j < len(spans.segs) and spans.segs[j][0] < b:
+            s0, s1, i = spans.segs[j]
+            t = min(s1, b) - max(s0, a)
+            if t > 0 and spans.names[i] in program_spans.LOOP:
+                while i >= 0 and spans.names[i] != "solve":
+                    i = spans.parents[i]
+                if i in scale_of:
+                    loop_by_scale[scale_of[i]] = loop_by_scale.get(scale_of[i], 0.0) + t
+            j += 1
+    for i, rs in reads.items():
+        if i in scale_of:
+            reads_by_scale[scale_of[i]] = reads_by_scale.get(scale_of[i], 0) + len(rs)
+    calls = {}
+    for n, _, d in p.runtime:
+        c = calls.setdefault(n, [0, 0.0])
+        c[0] += 1
+        c[1] += d
     by_kernel = {}
     for n, _, d, _ in p.device:
         by_kernel[n[:100]] = by_kernel.get(n[:100], 0.0) + d
@@ -162,6 +195,13 @@ def analyse(p, result: dict) -> dict:
         "sync_end_minus_b1_end_q": quantiles(device_margin),
         "sync_end_minus_b1_end_by_third_median_s": thirds(when, device_margin),
         "spans_per_request": {n: c / n_requests for n, c in sorted(names.items())},
+        "loop_idle_ms_per_request_by_scale": {
+            sc: 1e3 * t / n_requests for sc, t in sorted(loop_by_scale.items())},
+        "reads_per_request_by_scale": {
+            sc: c / n_requests for sc, c in sorted(reads_by_scale.items())},
+        "runtime_calls_per_request": {
+            n: [c / n_requests, 1e3 * d / n_requests]
+            for n, (c, d) in sorted(calls.items(), key=lambda kv: -kv[1][1])[:20]},
         "device_s_by_op": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]),
         "solves": p.solves,
     }

@@ -45,3 +45,37 @@ def tiled_pair(nx: int, ny: int, shift=(1.5, -0.8), seed: int = 0):
         return (gx.T @ amp @ gy).astype(np.float32)
 
     return img(0.0, 0.0), img(*shift)
+
+
+def plain_solve_level_blocked(u, iref, imov, cfg, niter, scale, k, block_fn, recompute_fn):
+    """The blocked level loop without its lookahead, the reference its
+    tests hold ``engine.registration._solve_level_blocked`` to: launch a
+    block, read its Logger sums at once, decide, launch the next. Same
+    arguments and result; no spans, no counters."""
+    from opticalflow2d_tpu_torch.engine.registration import LevelTrace
+    from opticalflow2d_tpu_torch.kernels.derive import derive
+    from opticalflow2d_tpu_torch.ops.warp import compose, warp2d
+
+    tol = np.float32(cfg.convergence_tol)
+    traces = []
+    for _ in range(cfg.nrefine):
+        g = derive(iref, warp2d(imov, u))
+        u_est = torch.zeros_like(u)
+        errs = np.zeros(-(-niter // k) * k, np.float32)
+        it, conv = 0, False
+        while it < niter and not conv:
+            u_blk, sums = block_fn(u_est, g)
+            s = sums.cpu().numpy()
+            prev = s[:, 1]
+            errs_blk = np.where(prev == 0, np.float32(0),
+                                s[:, 0] / np.where(prev == 0, np.float32(1), prev))
+            its = it + np.arange(k)
+            conv_vec = (errs_blk < tol) & (its > 1) & (its < niter)
+            conv = bool(conv_vec.any())
+            n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
+            u_est = recompute_fn(u_est, g, n_take) if n_take < k else u_blk
+            errs[it:it + n_take] = errs_blk[:n_take]
+            it += n_take
+        u = compose(u, u_est)
+        traces.append(LevelTrace(scale, torch.from_numpy(errs[:niter].copy()), it, 0))
+    return u, traces

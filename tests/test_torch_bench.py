@@ -12,6 +12,7 @@ pytest.register_assert_rewrite("torch_bench.tests")
 from torch_bench.tests.conftest import small_cell  # noqa: E402,F401 (a fixture)
 from torch_bench.tests.test_arithmetic import *  # noqa: E402,F401,F403
 from torch_bench.tests.test_correct import *  # noqa: E402,F401,F403
+from torch_bench.tests.test_discard_reader import *  # noqa: E402,F401,F403
 from torch_bench.tests.test_fluid_cell import *  # noqa: E402,F401,F403
 from torch_bench.tests.test_fluid_readers import *  # noqa: E402,F401,F403
 from torch_bench.tests.test_span_readers import *  # noqa: E402,F401,F403

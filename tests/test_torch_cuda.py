@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import npy
+from _torch_helpers import npy, plain_solve_level_blocked, tiled_pair
 from opticalflow2d_tpu_torch import Method, RegConfig, kernels, register
 from opticalflow2d_tpu_torch.kernels import _build
 from opticalflow2d_tpu_torch.kernels import demons_fused, demons_onepass
@@ -263,6 +263,54 @@ def test_register_gpu_matches_cpu_and_counts_launches(cuda):
     assert gpu.motion.device == cuda
     diffusion_path = ("diffusion_block", "diffusion_step", "warp2d", "compose", "upsample_motion")
     assert all(kernels.LAUNCHES[name] > 0 for name in diffusion_path), kernels.LAUNCHES
+
+
+def test_register_lookahead_equals_the_plain_loop_and_reads_once_a_block(cuda, monkeypatch):
+    """The blocked loop's lookahead on the card: a 1024^2 diffusion
+    ``register`` gives the motion, errors and counts of the plain loop that
+    reads each block before launching the next, bit for bit. Inside each
+    solve the host waits once a block taken (the runtime syncs of the
+    benchmark's ``syncs_per_iter``), and no solve after the first pins
+    host memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from opticalflow2d_tpu_torch.utils import profiling
+    from torch_bench import trace
+
+    iref, imov = (torch.from_numpy(x).to(cuda) for x in tiled_pair(1024, 1024))
+    cfg = RegConfig(method=Method.DIFFUSION, niter=(400,) * 5, nscales=4, nrefine=2,
+                    alpha=0.1)
+    with monkeypatch.context() as m:
+        m.setattr(registration, "_solve_level_blocked", plain_solve_level_blocked)
+        want = register(iref, imov, cfg)
+    registration._HostSums._cache.__dict__.clear()
+    before = dict(registration.LOOKAHEAD)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = register(iref, imov, cfg)
+        torch.cuda.synchronize()
+    records = profiling.records()
+    profiling.clear()
+    assert torch.equal(got.motion, want.motion)
+    assert [(t.scale, t.iterations) for t in got.traces] == \
+        [(t.scale, t.iterations) for t in want.traces]
+    assert all(torch.equal(t.errors, w.errors) for t, w in zip(got.traces, want.traces))
+    k = cfg.block_k
+    blocks = [-(-t.iterations // k) for t in got.traces]
+    dropped = [int(b * k < cfg.niter[t.scale]) for b, t in zip(blocks, got.traces)]
+    assert registration.LOOKAHEAD["discarded"] - before["discarded"] == sum(dropped) > 0
+    assert registration.LOOKAHEAD["ahead"] - before["ahead"] == \
+        sum(blocks) - len(blocks) + sum(dropped)
+    _, runtime, _ = trace.reduce_events(prof.profiler.kineto_results.events())
+    solves = [r for r in records if r[0] == "solve"]
+    assert len(solves) == len(got.traces)
+    syncs = [[e for e in runtime if e[0] in trace.SYNC_CALLS and s[1] <= e[1] <= s[1] + s[2]]
+             for s in solves]
+    assert [len(x) for x in syncs] == blocks, [sorted({e[0] for e in x}) for x in syncs]
+    first_end = solves[0][1] + solves[0][2]
+    pinned = [e for e in runtime if ("HostAlloc" in e[0] or "HostRegister" in e[0])
+              and e[1] >= first_end]
+    assert not pinned, pinned
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

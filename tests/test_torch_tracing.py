@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import opticalflow2d_tpu_torch as T
 from _torch_helpers import tiled_pair
+from opticalflow2d_tpu_torch.engine import registration
 from opticalflow2d_tpu_torch.parallel import register_batch
 from opticalflow2d_tpu_torch.utils import profiling
 
@@ -246,3 +247,31 @@ def test_the_chrome_trace_holds_the_spans_over_their_operations(tmp_path):
         assert covered, s["args"]
     # The spans were cleared when the trace started: one run's worth.
     assert len(profiling.records()) == len(ours)
+
+
+def test_each_discarded_block_is_one_discard_span_inside_its_solve():
+    """The blocked loop's lookahead drops the block it launched ahead when
+    the stop lands in the block before: one ``discard`` span, with no
+    attributes, inside that solve, and nowhere else. Without a profiler
+    the same run records nothing; the fluid loop has no lookahead."""
+    iref, imov = tiled_pair(*SHAPE)
+    sess = _session()
+    k = sess.config.block_k
+    before = dict(registration.LOOKAHEAD)
+    (result, _, _), recs, _ = _traced(lambda: _request(sess, iref, imov))
+    discarded = registration.LOOKAHEAD["discarded"] - before["discarded"]
+    solves = _named(recs, "solve")
+    want = [int(math.ceil(t.iterations / k) * k < sess.config.niter[t.scale])
+            for t in result.traces]
+    assert [len(_children(recs, recs.index(s), "discard")) for s in solves] == want
+    assert len(_named(recs, "discard")) == sum(want) == discarded > 0
+    assert all(r[5] is None and recs[r[3]][0] == "solve" for r in _named(recs, "discard"))
+    profiling.clear()
+    _request(sess, iref, imov)
+    assert registration.LOOKAHEAD["discarded"] - before["discarded"] == 2 * discarded
+    assert profiling.records() == []
+    fluid = _session(T.Method.FLUID, (0.25, 0.0), niter=(12, 8, 6))
+    before = dict(registration.LOOKAHEAD)
+    _, recs, _ = _traced(lambda: _request(fluid, iref, imov))
+    assert _named(recs, "solve") and not _named(recs, "discard")
+    assert registration.LOOKAHEAD == before
