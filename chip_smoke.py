@@ -13,7 +13,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    <= 1e-6 relative): the diffusion block at k = 1-8, 16 and 22 (each
    plan: 8 compiled in, 48 x 48 at run time, 32 x 32 at 22) bit for bit,
    also on 4x4 and 33x1000, the diffusion step, warp and compose with
-   displacements up to +-40 px, the Logger norms, the three demons kernels
+   displacements up to +-40 px, the Logger norms, B1 (k = 8 and 5), B2
+   and B4 by their pair-axis entries on a stack of one pair, as the level
+   loop runs them, against their single entries too, bit for bit (B4's
+   sums within 1e-5 of the plain version), the three demons kernels
    at kernelwidth 3, 5, 7, 11 and 43 (each plan of their tiles: 5 with its
    taps known, 64 x 64 tiles at run time, 32 x 32 with two staging buffers
    and with one; the one-pass kernel by composition and by addition) with
@@ -331,13 +334,15 @@ SPECTRAL_PATHS = (
 )
 # The kernels each spectral path must launch, and those it must not: it
 # runs no block or fluid-iteration kernel (the spectral fluid step takes
-# neither fused route, as in JAX).
-SPECTRAL_KERNELS = {"curvature": ("warp2d", "compose", "logger_norms"),
-                    "elastic_spectral": ("warp2d", "compose", "logger_norms"),
-                    "elastic_dirichlet": ("warp2d", "compose", "logger_norms"),
+# neither fused route, as in JAX). The level loop runs a stack of one pair,
+# its Logger sums on B4's pair-axis entry.
+SPECTRAL_KERNELS = {"curvature": ("warp2d", "compose", "logger_norms_batch"),
+                    "elastic_spectral": ("warp2d", "compose", "logger_norms_batch"),
+                    "elastic_dirichlet": ("warp2d", "compose", "logger_norms_batch"),
                     "fluid_spectral": ("warp2d", "compose", "fluid_metrics")}
-NOT_ON_SPECTRAL = ("diffusion_block", "diffusion_step", "elastic_block", "fluid_iter",
-                   "fluid_sweep_max", "fluid_euler")
+NOT_ON_SPECTRAL = ("diffusion_block", "diffusion_block_batch", "diffusion_step",
+                   "diffusion_step_batch", "elastic_block", "fluid_iter", "fluid_sweep_max",
+                   "fluid_euler")
 SP_CURVATURE = ("sp_curvature", "curvature", dict(alpha=CURVATURE[0], tau=CURVATURE[1],
                                                   halo=SP_HALO))
 
@@ -367,6 +372,9 @@ BATCH_PATHS = (
 BATCH_KERNEL_SHAPES = ((1000, 777), (1024, 1024))
 BATCH_KERNEL_PAIRS = ([0, 1, 2], [2, 0])
 BATCH_KS = (8, 3)
+# B1 on a stack of one pair, as the level loop runs it for ``register``:
+# the slide cell's block, and a block that the niter cap cuts short.
+ONE_PAIR_KS = (8, 5)
 # The batched kernels and the single-pair kernels whose work they repeat per pair.
 BATCHED = {"diffusion_block_batch": "diffusion_block", "diffusion_step_batch": "diffusion_step",
            "warp2d_batch": "warp2d", "compose_batch": "compose",
@@ -754,6 +762,35 @@ def check_batch_kernels(err: dict, dev, gen: torch.Generator, nx: int, ny: int) 
         plain = logger_norms_batch_ref(u_total, disp, pairs)
         check_pairs(err, "logger_norms_batch", shape, pairs, [], [], [],
                     (list(sums), single, list(plain)))
+
+
+def check_one_pair(err: dict, u, g, u_total, disp) -> None:
+    """B1 (at ONE_PAIR_KS), B2 and B4 by their pair-axis entries on a stack
+    of one pair, as the level loop launches them for ``register``: into a
+    given stack (NaN-filled here, so a pixel left unwritten shows), B1
+    with no pair list. Each against its single entry (fields and sums bit
+    for bit) and its plain version (fields bit for bit, sums within
+    SUMS_RTOL)."""
+    one = _build.Pairs([0], 1)
+    shape = (1,) + tuple(u.shape[1:])
+    u1, g1 = u[None], g[None]
+    for k in ONE_PAIR_KS:
+        out, sums = diffusion_block_batch(u1, g1, ALPHA, k, one,
+                                          torch.full_like(u1, float("nan")))
+        single, single_sums = diffusion_block(u, g, ALPHA, k)
+        ref, ref_sums = diffusion_block_batch_ref(u1, g1, ALPHA, k, one)
+        check_pairs(err, "diffusion_block_batch", shape, [0], [out[0]], [single], [ref[0]],
+                    ([sums[0]], [single_sums], [ref_sums[0]]), k=k, one_pair=True)
+        del out, single, ref
+    out = diffusion_step_batch(u1, g1, ALPHA, one, torch.full_like(u1, float("nan")))
+    check_pairs(err, "diffusion_step_batch", shape, [0], [out[0]],
+                [diffusion_step_fused(u, g[:2], g[2], ALPHA)],
+                [diffusion_step_batch_ref(u1, g1, ALPHA, one)[0]], one_pair=True)
+    del out
+    sums = logger_norms_batch(u_total[None], disp[None], one)
+    check_pairs(err, "logger_norms_batch", shape, [0], [], [], [],
+                ([sums[0]], [logger_norms(u_total, disp)],
+                 [logger_norms_batch_ref(u_total[None], disp[None], one)[0]]), one_pair=True)
 
 
 def batch_host_reads(method: Method, regparams, res) -> dict:
@@ -1261,6 +1298,7 @@ def check_shape(err: dict, dev, gen: torch.Generator, iref, imov, every: bool) -
         require(e <= SUMS_RTOL, f"logger_norms {shape}: sums {e}")
         err["logger_norms"] = max(err["logger_norms"], max_abs(sums, sums_ref))
 
+        check_one_pair(err, u, g, u_total, disp)
         check_demons(err, dev, gen, iref, imov, small, disp, u_total)
 
         # Elastic and fluid: a field of up to 1.5 px (and, for fluid, a
@@ -2240,7 +2278,12 @@ def main() -> None:
     timed("times", library_times, dev)
     timed("utilities", phase_utilities, dev, times["diffusion_block"]["ms"])
     emit({"phase": "seconds", **seconds})
-    launches = {name: sum(run[name] for run in main_launches.values()) for name in KERNELS}
+    # A kernel's launches through its single and its pair-axis entry: the
+    # level loop takes the pair-axis entry of B1, B2 and B4 for one pair.
+    entries = {name: [name] + [b for b, single in BATCHED.items() if single == name]
+               for name in KERNELS}
+    launches = {name: sum(run[e] for run in main_launches.values() for e in entries[name])
+                for name in KERNELS}
     missing = [name for name in KERNELS if launches[name] == 0]
     emit({"phase": "launch_check", "main": main_launches, "parity_runs": parity_launches,
           "missing_in_main": missing})

@@ -8,8 +8,8 @@ Control flow mirrors the reference (``ImageRegistrationOpticalFlow.cpp:97-151``)
         seed the level's motion            (the reference's down/upsample quirk)
         for refine in range(nrefine):
             warp the moving image, derive
-            iterate until niter, or until the relative step norm < tol
-            after iteration 1              (host loop: k diffusion or
+            iterate until niter, or until the relative step norm falls
+            below tol after iteration 1    (host loop: k diffusion or
                                             elastic iterations a pass, or
                                             one curvature, spectral
                                             elastic, demons or fluid
@@ -20,11 +20,12 @@ Control flow mirrors the reference (``ImageRegistrationOpticalFlow.cpp:97-151``)
 
 The convergence monitor is the reference ``Logger`` (``src/Logger.cpp:32-58``):
 ``err_t = |u_t - u_{t-1}| / |u_{t-1}|`` with ``|.|`` the mean per-pixel
-magnitude, ``err = 0`` when the previous norm is zero.
+magnitude, ``err = 0`` when the previous norm is zero (``engine.logger``).
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import NamedTuple, Tuple
 
@@ -32,23 +33,17 @@ import numpy as np
 import torch
 
 from opticalflow2d_tpu_torch.config import Method, RegConfig
+from opticalflow2d_tpu_torch.engine.logger import block_stop, relative_errors
 from opticalflow2d_tpu_torch.kernels._build import Pairs
 from opticalflow2d_tpu_torch.kernels.derive import derive
-from opticalflow2d_tpu_torch.kernels.diffusion_block import (
+# diffusion_block stays importable here: the benchmark's tests patch it.
+from opticalflow2d_tpu_torch.kernels.diffusion_block import (  # noqa: F401
     diffusion_block,
     diffusion_block_batch,
-    stack_derivs,
 )
-from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
-    diffusion_step_batch,
-    diffusion_step_fused,
-)
+from opticalflow2d_tpu_torch.kernels.diffusion_fused import diffusion_step_batch
 from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block
-from opticalflow2d_tpu_torch.kernels.logger_norms import (
-    fluid_metrics,
-    logger_norms,
-    logger_norms_batch,
-)
+from opticalflow2d_tpu_torch.kernels.logger_norms import fluid_metrics, logger_norms_batch
 from opticalflow2d_tpu_torch.kernels.warp_fused import compose_batch, warp2d_batch
 from opticalflow2d_tpu_torch.ops.resample import (
     downsample_image,
@@ -57,8 +52,8 @@ from opticalflow2d_tpu_torch.ops.resample import (
     upsample_motion,
 )
 from opticalflow2d_tpu_torch.ops.warp import compose, warp2d
-from opticalflow2d_tpu_torch.solvers.base import Derivatives, derivatives, lssd_force
-from opticalflow2d_tpu_torch.solvers.curvature import make_curvature_solve, make_curvature_step
+from opticalflow2d_tpu_torch.solvers.base import Derivatives, lssd_force
+from opticalflow2d_tpu_torch.solvers.curvature import make_curvature_step
 from opticalflow2d_tpu_torch.solvers.demons import make_demons_step
 from opticalflow2d_tpu_torch.solvers.elastic import elastic_step
 from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
@@ -106,30 +101,32 @@ LOOKAHEAD = {"ahead": 0, "discarded": 0}
 
 
 class _HostSums:
-    """The host's copy of a block's Logger sums ``[k, 2]``. On CUDA a pinned
-    buffer filled by an asynchronous copy with an event recorded after it,
-    so that a read waits for that block and not for one queued behind it;
-    the buffer and the event are made once per device and ``k`` in each
-    thread (pinning host memory in the loop would stall it). On the CPU a
-    plain copy."""
+    """The host's copy of a block's Logger sums ``[n, k, 2]``, in the first
+    ``n`` rows of a ``[B, k, 2]`` buffer for a stack of ``B``. On CUDA a
+    pinned buffer filled by an asynchronous copy with an event recorded
+    after it, so that a read waits for that block and not for one queued
+    behind it; the buffer and the event are made once per device, ``B`` and
+    ``k`` in each thread (pinning host memory in the loop would stall it).
+    On the CPU a plain copy."""
 
     _cache = threading.local()
 
-    def __init__(self, k: int, like: torch.Tensor):
+    def __init__(self, b: int, k: int, like: torch.Tensor):
         self.event = self.stream = None
         if like.device.type != "cuda":
-            self.buf = torch.empty((k, 2), dtype=like.dtype)
+            self.buf = torch.empty((b, k, 2), dtype=like.dtype)
             return
         made = self._cache.__dict__.setdefault("made", {})
-        key = (like.device, k, like.dtype)
+        key = (like.device, b, k, like.dtype)
         if key not in made:
-            made[key] = (torch.empty((k, 2), dtype=like.dtype, pin_memory=True),
+            made[key] = (torch.empty((b, k, 2), dtype=like.dtype, pin_memory=True),
                          torch.cuda.Event())
         self.buf, self.event = made[key]
         self.stream = torch.cuda.current_stream(like.device)
 
     def enqueue(self, sums: torch.Tensor) -> None:
-        self.buf.copy_(sums, non_blocking=self.event is not None)
+        buf = self.buf if len(sums) == len(self.buf) else self.buf[:len(sums)]
+        buf.copy_(sums, non_blocking=self.event is not None)
         if self.event is not None:
             self.event.record(self.stream)
 
@@ -139,196 +136,152 @@ class _HostSums:
         return self.buf.numpy()
 
 
-def _solve_level_blocked(u, iref, imov, cfg: RegConfig, niter: int,
-                         scale: int, k: int, block_fn, recompute_fn):
-    """Variational level driver over a temporal-blocked kernel: ``k`` solver
-    iterations a pass, with the Logger's stop kept exact. The kernel emits
-    the per-iteration step and previous-field magnitude sums; the host reads
-    them once a block, and when the stop (or the niter cap) lands inside a
-    block it recomputes the taken steps from the block's start with
-    ``recompute_fn``.
-
-    The host runs one block behind the device: block n + 1 is launched on
-    block n's output before block n's sums are read, unless block n reaches
-    the niter cap, so the device computes it while the host decides. When
-    the stop lands in block n, block n + 1 is dropped unread (``discard``)
-    and block n's field is taken as without it; ``LOOKAHEAD`` counts both.
-
-    ``block_fn(u, g) -> (u_after_k, sums [k, 2])``;
-    ``recompute_fn(u, g, n) -> u`` gives the same field as the first ``n``
-    of those iterations."""
-    nb = -(-niter // k)
-    tol = np.float32(cfg.convergence_tol)
-    traces = []
-    for refine in range(cfg.nrefine):
-        with span("solve", scale=scale, refine=refine, nx=u.shape[-2], ny=u.shape[-1]):
-            with span("derive"):
-                g = derive(iref, warp2d(imov, u))
-            u_est = torch.zeros_like(u)
-            errs = np.zeros(nb * k, np.float32)
-            host = _HostSums(k, u)
-            it = 0
-            queued = block_fn(u_est, g) if niter > 0 else None
-            while queued is not None:
-                u_blk, sums = queued
-                host.enqueue(sums)
-                queued = None
-                if it + k < niter:
-                    queued = block_fn(u_blk, g)
-                    LOOKAHEAD["ahead"] += 1
-                with span("read", site="block"):
-                    s = host.read()  # the one host read per block
-                    prev = s[:, 1]
-                    errs_blk = np.where(prev == 0, np.float32(0),
-                                        s[:, 0] / np.where(prev == 0, np.float32(1), prev))
-                    its = it + np.arange(k)
-                    conv_vec = (errs_blk < tol) & (its > 1) & (its < niter)
-                    conv = bool(conv_vec.any())
-                    n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
-                if conv and queued is not None:
-                    with span("discard"):
-                        queued = None
-                    LOOKAHEAD["discarded"] += 1
-                if n_take < k:
-                    with span("recompute"):
-                        u_est = recompute_fn(u_est, g, n_take)
-                else:
-                    u_est = u_blk
-                errs[it:it + n_take] = errs_blk[:n_take]
-                if cfg.verbose_stream:
-                    for t in range(n_take):
-                        print(f"  [scale {scale}] iteration {it + t + 1}: "
-                              f"relative error {float(errs_blk[t]):.6f}", flush=True)
-                it += n_take
-            with span("compose"):
-                u = compose(u, u_est)
-            check_level_field(scale, refine, u_est, u)
-            traces.append(LevelTrace(scale, torch.from_numpy(errs[:niter].copy()), it, 0))
-    return u, traces
+@functools.lru_cache(maxsize=None)
+def _everyone(b: int) -> Pairs:
+    """Every pair of a stack of ``b``, made once, with its device copy."""
+    return Pairs(range(b), b)
 
 
-def _solve_level_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int, k: int,
-                       block_fn, recompute_fn):
-    """``_solve_level_blocked`` over a stack of pairs in lockstep: ``u [B, 2,
-    nx, ny]``, ``irefs`` and ``imovs [B, nx, ny]``. Each pair keeps its own
-    Logger stop and iteration count, as the JAX package's vmapped
-    ``while_loop`` does; once it stops, its field does not change. A block
-    launches its kernels once for the pairs still active and reads all
-    their sums ``[n_active, k, 2]`` in one host read; a pair whose stop
-    lands inside the block recomputes its taken steps from the block's
-    start; a pair that has stopped leaves the active list and is not
-    launched again (where JAX's vmap executes both branches under a mask,
-    with the same results).
+def _out(dst, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(like) if dst is None else dst
 
-    The increments ping-pong between two stacks, ``cur`` (the block's
-    start) and ``nxt``; a stopping pair's field goes to ``final``.
-    ``block_fn(cur, g, pairs, nxt) -> sums [n, k, 2]`` writes the ``k``
-    iterations of each listed pair into ``nxt``;
-    ``recompute_fn(cur, g, pairs, n, nxt, final)`` writes the first ``n``
-    of them into ``final`` and may overwrite the listed pairs of ``nxt``."""
+
+def _stack(xs) -> torch.Tensor:
+    """``torch.stack(xs)``, or a view of the one: a stack of one costs no copy."""
+    return xs[0][None] if len(xs) == 1 else torch.stack(xs)
+
+
+def _gather(single, batched, data, u):
+    """B3 (warp or compose) on each pair of a stack in one launch, or the
+    single launch for a stack of one (4-5% faster there, 4096^2 on an H100)."""
+    if u.shape[0] == 1:
+        return single(data[0], u[0])[None]
+    return batched(data, u, _everyone(u.shape[0]), torch.empty_like(data))
+
+
+def _solve_level_blocked(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int, k: int,
+                         block_fn, recompute_fn, batch: bool = False):
+    """Variational level driver over a temporal-blocked kernel, on a stack
+    of pairs ``u [B, 2, nx, ny]`` in lockstep (``register`` passes a stack
+    of one): ``k`` iterations a launch for the pairs still active, and one
+    host read a block of their Logger sums, from which each pair's stop is
+    decided exactly (``engine.logger``), as the JAX package's vmapped
+    ``while_loop`` decides it. A pair whose stop or niter cap lands inside
+    a block recomputes its taken steps from the block's start; a stopped
+    pair is not launched again.
+
+    The host runs one block behind: block n + 1 is launched on block n's
+    output before block n's sums are read, unless block n reaches the cap.
+    A pair that stops in block n drops its share of block n + 1, and a
+    block left with no pair is dropped unread (``discard``; ``LOOKAHEAD``
+    counts). The increments rotate through three stacks (a block's start,
+    its output, the block ahead); the kernels write only the listed pairs,
+    so a stopped pair's field stays in its stack, and the stacks are
+    gathered into one at the end, copying only where pairs stopped in
+    different ones.
+
+    ``block_fn(src, g, pairs, dst) -> (dst, sums [n, k, 2])`` writes the
+    ``k`` iterations of the listed pairs into ``dst`` (a new stack where
+    None); ``recompute_fn(src, g, pairs, n, final, other)`` writes the
+    first ``n`` into ``final``, with ``other`` (or None) between. ``batch``
+    tags each verbose line with its pair and each read ``site="batch"``."""
     b = u.shape[0]
     nb = -(-niter // k)
     tol = np.float32(cfg.convergence_tol)
-    everyone = Pairs(range(b), b)
     traces = []
     for refine in range(cfg.nrefine):
         with span("solve", scale=scale, refine=refine, nx=u.shape[-2], ny=u.shape[-1]):
             with span("derive"):
-                d = derivatives(irefs, warp2d_batch(imovs, u, everyone))
-                g = stack_derivs(d.grad_i, d.it)
-            cur, nxt, final = torch.zeros_like(u), torch.empty_like(u), torch.zeros_like(u)
+                warped = _gather(warp2d, warp2d_batch, imovs, u)
+                g = _stack([derive(irefs[p], warped[p]) for p in range(b)])
+                del warped
             errs = np.zeros((b, nb * k), np.float32)
             its = np.zeros(b, np.int64)
-            active = everyone if niter > 0 else None
-            while active is not None:
-                sums = block_fn(cur, g, active, nxt)
-                with span("read", site="batch"):
-                    s = sums.cpu().numpy()  # the one host read per block
-                    still, stop_full, stop_inside = [], [], {}
-                    for z, p in enumerate(active):
-                        prev = s[z, :, 1]
-                        errs_blk = np.where(prev == 0, np.float32(0),
-                                            s[z, :, 0] / np.where(prev == 0, np.float32(1), prev))
-                        it = int(its[p])
-                        its_blk = it + np.arange(k)
-                        conv_vec = (errs_blk < tol) & (its_blk > 1) & (its_blk < niter)
-                        conv = bool(conv_vec.any())
-                        n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
-                        errs[p, it:it + n_take] = errs_blk[:n_take]
+            host = _HostSums(b, k, u)
+            bufs = [torch.zeros_like(u), None, None]
+            start, out, ahead = 0, 1, 2  # the roles of the three stacks
+            where = [start if niter == 0 else None] * b  # the stack of a stopped pair
+            active = _everyone(b) if niter > 0 else None
+            queued = None
+            if active is not None:
+                bufs[out], sums = block_fn(bufs[start], g, active, None)
+                queued = (active, sums)
+            while queued is not None:
+                launched, sums = queued
+                host.enqueue(sums)
+                queued = None
+                it = int(its[active.idx[0]])  # the active pairs' common count
+                if it + k < niter:
+                    bufs[ahead], sums = block_fn(bufs[out], g, active, bufs[ahead])
+                    queued = (active, sums)
+                    LOOKAHEAD["ahead"] += 1
+                still, inside = [], {}
+                with span("read", site="batch" if batch else "block"):
+                    s = host.read()  # the one host read per block
+                    for z, p in enumerate(launched):
+                        if where[p] is not None:
+                            continue  # stopped in the block before
+                        e = relative_errors(s[z, :, 0], s[z, :, 1])
+                        n_take, stopped = block_stop(e, it, niter, tol)
+                        errs[p, it:it + n_take] = e[:n_take]
                         if cfg.verbose_stream:
+                            tag = f"[pair {p}] " if batch else ""
                             for t in range(n_take):
-                                print(f"  [pair {p}] [scale {scale}] iteration {it + t + 1}: "
-                                      f"relative error {float(errs_blk[t]):.6f}", flush=True)
+                                print(f"  {tag}[scale {scale}] iteration {it + t + 1}: "
+                                      f"relative error {float(e[t]):.6f}", flush=True)
                         its[p] = it + n_take
-                        if not conv and its[p] < niter:
+                        if not stopped and its[p] < niter:
                             still.append(p)
-                        elif n_take < k:
-                            stop_inside.setdefault(n_take, []).append(p)
-                        else:
-                            stop_full.append(p)
-                for p in stop_full:
-                    final[p] = nxt[p]
-                if stop_inside:
+                            continue
+                        where[p] = out
+                        if n_take < k:
+                            inside.setdefault(n_take, []).append(p)
+                if queued is not None and not still:
+                    with span("discard"):
+                        queued = None
+                    LOOKAHEAD["discarded"] += 1
+                if inside:
                     with span("recompute"):
-                        for n_take, ps in stop_inside.items():
-                            recompute_fn(cur, g, Pairs(ps, b), n_take, nxt, final)
-                cur, nxt = nxt, cur
+                        for n_take, ps in inside.items():
+                            pairs = active if len(ps) == len(active) else Pairs(ps, b)
+                            recompute_fn(bufs[start], g, pairs, n_take, bufs[out],
+                                         bufs[ahead])
+                start, out, ahead = out, ahead, start
+                if ahead not in where:
+                    bufs[ahead] = None
                 if len(still) != len(active):
                     active = Pairs(still, b) if still else None
+            keep = max(set(where), key=where.count)
+            for p, w in enumerate(where):
+                if w != keep:
+                    bufs[keep][p] = bufs[w][p]
+            inc, bufs = bufs[keep], None
             with span("compose"):
-                u = compose_batch(u, final, everyone)
-            check_level_field(scale, refine, final, u)
+                u = _gather(compose, compose_batch, u, inc)
+            check_level_field(scale, refine, inc, u)
+            del inc  # not held through the next refinement
             traces.append(LevelTrace(scale, torch.from_numpy(errs[:, :niter].copy()),
                                      torch.from_numpy(its), torch.zeros(b, dtype=torch.int64),
                                      torch.zeros(b, dtype=torch.int64)))
     return u, traces
 
 
-def _diffusion_steps(u, g, n: int, alpha: float):
-    for _ in range(n):
-        u = diffusion_step_fused(u, g[:2], g[2], alpha)
-    return u
-
-
-def _diffusion_steps_batch(cur, g, pairs, n: int, nxt, final, alpha: float):
-    """``n`` steps of the listed pairs from ``cur`` into ``final``, one
-    launch a step, ping-ponging between ``final`` and ``nxt`` so that the
-    last lands in ``final``."""
-    bufs = (final, nxt) if n % 2 else (nxt, final)
-    src = cur
-    for t in range(n):
-        src = diffusion_step_batch(src, g, alpha, pairs, bufs[t % 2])
-
-
 def _single_step_pass(step):
-    """A block of one iteration for ``_solve_level_blocked``: ``step(u, d)``
-    and its Logger sums ``[1, 2]`` (B4 on the card)."""
-    def block(u, g):
-        new = step(u, Derivatives(g[:2], g[2]))
-        return new, logger_norms(new, u)[None]
+    """A block of one iteration: ``step(u [2, nx, ny], d)`` on each listed
+    pair, and their Logger sums ``[n, 1, 2]`` in one launch (B4). The step
+    runs per pair: a cuBLAS matmul over the stack takes another algorithm
+    than a pair's own and rounds apart from it."""
+    def block(src, g, pairs, dst):
+        new = [step(src[p], Derivatives(g[p, :2], g[p, 2])) for p in pairs]
+        if dst is None and len(pairs) == src.shape[0]:
+            dst = _stack(new)
+        else:
+            dst = _out(dst, src)
+            for p, v in zip(pairs, new):
+                dst[p] = v
+        return dst, logger_norms_batch(dst, src, pairs)[:, None]
 
     return block
-
-
-def _single_step_pass_batch(step):
-    """A batched block of one iteration for ``_solve_level_batch``:
-    ``step(u [n, 2, nx, ny], g [n, 3, nx, ny])`` on the listed pairs'
-    fields, and their Logger sums ``[n, 1, 2]`` in one launch (B4)."""
-    def block(cur, g, pairs, nxt):
-        ix = pairs.on(cur.device).long()
-        nxt.index_copy_(0, ix, step(cur.index_select(0, ix), g.index_select(0, ix)))
-        return logger_norms_batch(nxt, cur, pairs)[:, None]
-
-    return block
-
-
-def _per_pair(step):
-    """A step over a leading pair axis from a single-pair ``step(u, d)``."""
-    def batched(u, g):
-        return torch.stack([step(u[i], Derivatives(g[i, :2], g[i, 2]))
-                            for i in range(u.shape[0])])
-
-    return batched
 
 
 def _navier_lame_spectral(cfg: RegConfig, nx: int, ny: int):
@@ -347,118 +300,67 @@ def _navier_lame_spectral(cfg: RegConfig, nx: int, ny: int):
     raise ValueError(f"unknown navier_lame_solver {cfg.navier_lame_solver!r}")
 
 
-def _solve_level_variational(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
-    """Diffusion / curvature / elastic: derivatives once per refinement,
+def _solve_level_variational(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int,
+                             batch: bool = False):
+    """Diffusion / curvature / elastic on a stack of pairs ``u [B, 2, nx,
+    ny]`` (``_solve_level_blocked``): derivatives once per refinement,
     update-only iterations (reference ImageRegistrationOpticalFlow.cpp:
-    97-151). Diffusion and red-black elastic run a blocked kernel:
-    diffusion with ``k = cfg.block_k``, elastic with ``k = min(4,
-    cfg.block_k)``, the JAX package's elastic default; the kernels mask
-    ragged tiles, so no level needs an unblocked fallback. A stop inside an
-    elastic block reruns the elastic kernel for the taken iterations from
-    the block's start. Curvature, the spectral elastic solves and the
-    lexicographic sweep have no kernel of their own: they run one step a
-    pass, its Logger sums on B4. The curvature step (its eigenvalue table)
-    and the spectral solver are built once a level."""
-    nx, ny = iref.shape
-    if cfg.method == Method.CURVATURE:
-        step = make_curvature_step(nx, ny, cfg.alpha, cfg.tau, cfg.torch_dtype,
-                                   cfg.resolved_dct_impl)
-        return _solve_level_blocked(
-            u, iref, imov, cfg, niter, scale, 1, block_fn=_single_step_pass(step),
-            recompute_fn=None,  # never called: a block of one is always taken
-        )
-    if cfg.method == Method.DIFFUSION:
-        k = cfg.block_k
-        return _solve_level_blocked(
-            u, iref, imov, cfg, niter, scale, k,
-            block_fn=lambda v, g: diffusion_block(v, g, cfg.alpha, k),
-            recompute_fn=lambda v, g, n: _diffusion_steps(v, g, n, cfg.alpha),
-        )
-    solve = _navier_lame_spectral(cfg, nx, ny)
-    if solve is not None or cfg.sor_ordering == "lexicographic":
-        if solve is not None:
-            def step(v, d):
-                return solve(lssd_force(d, v))
-        else:
-            def step(v, d):
-                return elastic_step(v, d, cfg.mu, cfg.lam, cfg.omega,
-                                    cfg.compat.elastic_stencil_reference, "lexicographic")
-        return _solve_level_blocked(
-            u, iref, imov, cfg, niter, scale, 1, block_fn=_single_step_pass(step),
-            recompute_fn=None,  # never called: a block of one is always taken
-        )
-    if cfg.sor_ordering != "redblack":
-        raise ValueError(f"unknown SOR ordering {cfg.sor_ordering!r}")
-    k = min(4, cfg.block_k)
-    args = (cfg.mu, cfg.lam, cfg.omega, cfg.compat.elastic_stencil_reference)
-    return _solve_level_blocked(
-        u, iref, imov, cfg, niter, scale, k,
-        block_fn=lambda v, g: elastic_block(v, g, *args, k),
-        recompute_fn=lambda v, g, n: elastic_block(v, g, *args, n)[0],
-    )
-
-
-def _solve_level_variational_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int):
-    """``_solve_level_variational`` over a stack of pairs in lockstep
-    (``_solve_level_batch``). Diffusion: B1 over the active pairs, B2 over
-    those that stop inside a block (one launch a step for each count of
-    taken steps). Curvature: its force over the active pairs' stack, its
-    spectral solve once per pair, B4 over them: one cuBLAS matmul over the
-    stack takes another algorithm than a pair's own and, over 600
-    iterations at 1024^2, ends up to 7.9e-5 px from ``register`` on an
-    H100, where the solve per pair keeps every pair bit-equal. Red-black
-    elastic: B6 once per active pair. The spectral elastic solves and the
-    lexicographic sweep: their step once per active pair, B4 over them."""
+    97-151). Diffusion runs B1 over the active pairs at ``k =
+    cfg.block_k``, and B2 a step over those that stop inside a block;
+    red-black elastic B6 per pair at ``k = min(4, cfg.block_k)``, the JAX
+    package's default, rerun for a stop inside a block. The kernels mask
+    ragged tiles. Curvature, the spectral elastic solves and the
+    lexicographic sweep run one step a pass per pair, their Logger sums on
+    B4; the curvature step and the spectral solver are built once a
+    level."""
     nx, ny = irefs.shape[-2:]
     if cfg.method == Method.DIFFUSION:
         k = cfg.block_k
-        return _solve_level_batch(
-            u, irefs, imovs, cfg, niter, scale, k,
-            block_fn=lambda cur, g, pairs, nxt: diffusion_block_batch(
-                cur, g, cfg.alpha, k, pairs, nxt)[1],
-            recompute_fn=lambda cur, g, pairs, n, nxt, final: _diffusion_steps_batch(
-                cur, g, pairs, n, nxt, final, cfg.alpha),
-        )
+
+        def block(src, g, pairs, dst):
+            return diffusion_block_batch(src, g, cfg.alpha, k, pairs, _out(dst, src))
+
+        def recompute(src, g, pairs, n, final, other):
+            # B2 a step, ping-ponging with other so that the last lands in final.
+            other = _out(other, final) if n > 1 else other
+            for t in range(n):
+                src = diffusion_step_batch(src, g, cfg.alpha, pairs,
+                                           final if (n - t) % 2 else other)
+
+        return _solve_level_blocked(u, irefs, imovs, cfg, niter, scale, k, block, recompute,
+                                    batch)
+    solve = None if cfg.method == Method.CURVATURE else _navier_lame_spectral(cfg, nx, ny)
     if cfg.method == Method.CURVATURE:
-        solve = make_curvature_solve(nx, ny, cfg.alpha, cfg.tau, cfg.torch_dtype,
-                                     cfg.resolved_dct_impl)
-
-        def step(v, g):
-            rhs = v - cfg.tau * lssd_force(Derivatives(g[:, :2], g[:, 2]), v)
-            return torch.stack([solve(r) for r in rhs])
-
-        return _solve_level_batch(
-            u, irefs, imovs, cfg, niter, scale, 1, block_fn=_single_step_pass_batch(step),
-            recompute_fn=None,  # never called: a block of one is always taken
-        )
-    solve = _navier_lame_spectral(cfg, nx, ny)
-    if solve is not None or cfg.sor_ordering == "lexicographic":
-        if solve is not None:
-            def step(v, d):
-                return solve(lssd_force(d, v))
-        else:
-            def step(v, d):
-                return elastic_step(v, d, cfg.mu, cfg.lam, cfg.omega,
-                                    cfg.compat.elastic_stencil_reference, "lexicographic")
-        return _solve_level_batch(
-            u, irefs, imovs, cfg, niter, scale, 1,
-            block_fn=_single_step_pass_batch(_per_pair(step)),
-            recompute_fn=None,  # never called: a block of one is always taken
-        )
-    if cfg.sor_ordering != "redblack":
+        step = make_curvature_step(nx, ny, cfg.alpha, cfg.tau, cfg.torch_dtype,
+                                   cfg.resolved_dct_impl)
+    elif solve is not None:
+        def step(v, d):
+            return solve(lssd_force(d, v))
+    elif cfg.sor_ordering == "lexicographic":
+        def step(v, d):
+            return elastic_step(v, d, cfg.mu, cfg.lam, cfg.omega,
+                                cfg.compat.elastic_stencil_reference, "lexicographic")
+    elif cfg.sor_ordering != "redblack":
         raise ValueError(f"unknown SOR ordering {cfg.sor_ordering!r}")
-    k = min(4, cfg.block_k)
-    args = (cfg.mu, cfg.lam, cfg.omega, cfg.compat.elastic_stencil_reference)
+    else:
+        k = min(4, cfg.block_k)
+        args = (cfg.mu, cfg.lam, cfg.omega, cfg.compat.elastic_stencil_reference)
 
-    def block(cur, g, pairs, nxt):
-        return torch.stack([elastic_block(cur[p], g[p], *args, k, out=nxt[p])[1]
-                            for p in pairs])
+        def block(src, g, pairs, dst):
+            dst = _out(dst, src)
+            return dst, _stack([elastic_block(src[p], g[p], *args, k, out=dst[p])[1]
+                                for p in pairs])
 
-    def recompute(cur, g, pairs, n, nxt, final):
-        for p in pairs:
-            elastic_block(cur[p], g[p], *args, n, out=final[p])
+        def recompute(src, g, pairs, n, final, other):
+            for p in pairs:
+                elastic_block(src[p], g[p], *args, n, out=final[p])
 
-    return _solve_level_batch(u, irefs, imovs, cfg, niter, scale, k, block, recompute)
+        return _solve_level_blocked(u, irefs, imovs, cfg, niter, scale, k, block, recompute,
+                                    batch)
+    return _solve_level_blocked(
+        u, irefs, imovs, cfg, niter, scale, 1, block_fn=_single_step_pass(step),
+        recompute_fn=None,  # never called: a block of one is always taken
+        batch=batch)
 
 
 def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
@@ -505,9 +407,8 @@ def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
                 u_new, velocity = step(u_est, velocity, g)
                 with span("read", site="fluid"):
                     s = fluid_metrics(u_new, prev).cpu().numpy()  # the one host read
-                    dn, pn = s[0] / n_pix, s[1] / n_pix
-                    err = np.float32(0) if pn == 0 else dn / pn
-                    conv = bool(err < tol) and it > 1
+                    [err] = relative_errors([s[0] / n_pix], [s[1] / n_pix])
+                    _, conv = block_stop([err], it, niter, tol)
                 errs[it] = err
                 if cfg.verbose_stream:
                     print(f"  [scale {scale}] iteration {it + 1}: "
@@ -558,9 +459,8 @@ def _solve_level_demons(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
                 u_est, sums = step(u_est, iref, iaux)
                 with span("read", site="demons"):
                     s = sums.cpu().numpy()  # the one host read per iteration
-                    dn, pn = s[0] / n_pix, s[1] / n_pix
-                    err = np.float32(0) if pn == 0 else dn / pn
-                    conv = bool(err < tol) and it > 1
+                    [err] = relative_errors([s[0] / n_pix], [s[1] / n_pix])
+                    _, conv = block_stop([err], it, niter, tol)
                 errs[it] = err
                 if cfg.verbose_stream:
                     print(f"  [scale {scale}] iteration {it + 1}: "
@@ -578,7 +478,8 @@ def _solve_level(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
         return _solve_level_fluid(u, iref, imov, cfg, niter, scale)
     if cfg.method in (Method.THIRIONS_DEMONS, Method.DIFFEOMORPHIC_DEMONS):
         return _solve_level_demons(u, iref, imov, cfg, niter, scale)
-    return _solve_level_variational(u, iref, imov, cfg, niter, scale)
+    u, traces = _solve_level_variational(u[None], iref[None], imov[None], cfg, niter, scale)
+    return u[0], [LevelTrace(t.scale, t.errors[0], int(t.iterations), 0) for t in traces]
 
 
 def _register_impl(iref, imov, cfg: RegConfig, initial_motion=None,
@@ -662,10 +563,9 @@ def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
     of the JAX package's ``jax.vmap(_register_impl)``: ``irefs``, ``imovs
     [B, nx, ny]``, ``initial_motions [B, 2, nx, ny]`` or None. The levels
     and refinements advance together; within a refinement each pair stops
-    on its own (``_solve_level_variational_batch``). Diffusion, curvature
-    and elastic only. Every pair's result equals its own ``register``'s
-    bit for bit: B1-B4 reduce each pair in the order of a single launch,
-    and curvature's transforms run per pair."""
+    on its own in the level loop ``register`` runs on a stack of one
+    (``_solve_level_blocked``), so every pair's result equals its own
+    ``register``'s bit for bit. Diffusion, curvature and elastic only."""
     if cfg.method not in (Method.DIFFUSION, Method.CURVATURE, Method.ELASTIC):
         raise NotImplementedError(
             f"the lockstep batch driver runs diffusion, curvature and elastic, not "
@@ -697,8 +597,8 @@ def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
                 u_s = _each(downsample_motion, u_full, dims[s])
         else:
             u_s = u_full
-        u_s, level_traces = _solve_level_variational_batch(
-            u_s, pyr_ref[s], pyr_mov[s], cfg, int(cfg.niter[s]), s)
+        u_s, level_traces = _solve_level_variational(
+            u_s, pyr_ref[s], pyr_mov[s], cfg, int(cfg.niter[s]), s, batch=True)
         traces.extend(level_traces)
         if s == cfg.nscales:
             coarse_final = u_s

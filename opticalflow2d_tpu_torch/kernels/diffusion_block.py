@@ -5,7 +5,7 @@ device memory, with the reference Logger's per-iteration sums (CUDA
 on the whole image, ``diffusion_block_strip`` on one strip of the
 strip-parallel driver (``parallel.spatial``), pre-padded with its
 neighbours' halo rows; ``diffusion_block_batch`` on the listed pairs of a
-stack in one launch (the lockstep batch driver, ``parallel.batch``).
+stack in one launch (the level loop, ``engine.registration``).
 
 Relative error of iteration t is ``sums[t, 0] / sums[t, 1]``: the step
 magnitude over the previous field's magnitude, both summed over the image
@@ -167,10 +167,13 @@ def diffusion_block_batch(u: torch.Tensor, g: torch.Tensor, alpha: float, k: int
     partials = torch.empty((n, lib.of2d_diffusion_block_nblocks(nx, ny, k), k, 2),
                            dtype=u.dtype, device=u.device)
     sums = torch.empty((n, k, 2), dtype=u.dtype, device=u.device)
+    # A stack of one takes no pair list: the kernel's single-pair path, which
+    # skips the list's read at the start of each block (0.8% of B1's time at
+    # 4096^2 on an H100).
     _build.launch(
         "of2d_diffusion_block_batch", u.device, u.data_ptr(), g.data_ptr(), out.data_ptr(),
-        partials.data_ptr(), sums.data_ptr(), pairs.on(u.device).data_ptr(), n, nx, ny, k,
-        _build.f32(alpha * alpha),
+        partials.data_ptr(), sums.data_ptr(), 0 if b == 1 else pairs.on(u.device).data_ptr(),
+        n, nx, ny, k, _build.f32(alpha * alpha),
     )
     kernels.LAUNCHES["diffusion_block_batch"] += 1
     return out, sums

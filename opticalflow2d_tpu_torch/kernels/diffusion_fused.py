@@ -2,10 +2,9 @@
 force and Jacobi update in one pass (CUDA ``csrc/diffusion_step.cu``, the
 counterpart of ``opticalflow2d_tpu/pallas_kernels/diffusion_fused.py``).
 
-The registration driver runs it to recompute the taken steps of a block in
-which the Logger stop fired (``engine.registration._solve_level_blocked``);
-``diffusion_step_batch`` does so for the listed pairs of a stack in one
-launch (the lockstep batch driver, ``engine.registration._solve_level_batch``).
+The registration driver runs ``diffusion_step_batch`` to recompute, for the
+listed pairs of a stack in one launch, the taken steps of a block in which
+the Logger stop fired (``engine.registration._solve_level_blocked``).
 """
 
 from __future__ import annotations

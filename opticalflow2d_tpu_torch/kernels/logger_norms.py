@@ -8,8 +8,8 @@ The relative error of a step is ``(sums[0] / N) / (sums[1] / N)``
 (``src/Logger.cpp:30-60``). The kernel adds per-block partials in block
 order, with no float atomics, so a run's stop repeats exactly; it takes any
 grid, not only row counts that are multiples of 8. ``logger_norms_batch``
-takes the listed pairs of two stacks in one launch (the lockstep batch
-driver's curvature passes).
+takes the listed pairs of two stacks in one launch (the level loop's
+passes of one iteration).
 """
 
 from __future__ import annotations

@@ -5,11 +5,14 @@ Two ways to run a batch, as in the JAX package:
 
 - ``impl="vmap"``: the lockstep driver (``engine.registration.
   _register_batch_impl``, the counterpart of ``jax.vmap(_register_impl)``).
-  Every level launches its kernels once for all the pairs still iterating
-  and reads all their Logger sums in one host read a block; each pair keeps
-  its own stop and count, and leaves the launches once it stops. Diffusion,
-  curvature and elastic. Where JAX's vmap executes both branches of every
-  ``lax.cond`` under a mask, a stopped pair here costs nothing.
+  Its level loop is the one ``register`` runs on a stack of one pair
+  (``_solve_level_blocked``: the derivatives' kernel U2, the one-block
+  lookahead): every level launches its kernels once for all the pairs
+  still iterating and reads all their Logger sums in one host read a
+  block; each pair keeps its own stop and count, and leaves the launches
+  once it stops. Diffusion, curvature and elastic. Where JAX's vmap
+  executes both branches of every ``lax.cond`` under a mask, a stopped
+  pair here costs nothing.
 - ``impl="map"``: each pair through the single-pair ``_register_impl`` in
   turn, as ``lax.map`` does; every family.
 

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from opticalflow2d_tpu_torch.engine.logger import block_stop, relative_errors
 from opticalflow2d_tpu_torch.kernels.demons_fused import (
     compose_smooth_strip,
     compose_smooth_strip_pad,
@@ -512,7 +513,7 @@ def _fluid_level_strip(u: Strips, iref_l: Strips, imov_l: Strips, niter: int, ha
         jac_min = _pmin([((1.0 + a[0]) * (1.0 + b[1]) - a[1] * b[0]).min()
                          for a, b in zip(dudx, dudy)])
         err, jac = torch.stack([_rel_err_psum(u_new, prev), jac_min]).cpu().numpy()
-        conv = bool(err < tol) and it > 1
+        _, conv = block_stop([err], it, niter, tol)
         # The Logger's prev is the pre-regrid estimate (it lives outside the
         # regrid block in the reference).
         prev = u_new
@@ -541,13 +542,7 @@ def _level_blocked_strip(u: Strips, niter: int, k: int, pad: int, halo: int,
         u_pad = _halo_pad(u_est, pad)
         out = [block_call(s, up, k) for s, up in enumerate(u_pad)]
         sums = _psum([o[1] for o in out]).cpu().numpy()  # the one host read a block
-        prev = sums[:, 1]
-        errs = np.where(prev == 0, np.float32(0),
-                        sums[:, 0] / np.where(prev == 0, np.float32(1), prev))
-        its = it + np.arange(k)
-        conv_vec = (errs < tol) & (its > 1) & (its < niter)
-        conv = bool(conv_vec.any())
-        n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
+        n_take, conv = block_stop(relative_errors(sums[:, 0], sums[:, 1]), it, niter, tol)
         if n_take < k:
             u_est = [block_call(s, up, n_take)[0] for s, up in enumerate(u_pad)]
         else:
@@ -596,7 +591,7 @@ def _iterate_level_strip(one_step: Callable, u: Strips, niter: int, halo: int,
     while it < niter and not conv:
         u_new = one_step(u_est)
         err = np.float32(_rel_err_psum(u_new, prev).item())  # the one host read
-        conv = bool(err < tol) and it > 1
+        _, conv = block_stop([err], it, niter, tol)
         u_est = prev = u_new
         it += 1
     return _compose_local(u, u_est, halo), it

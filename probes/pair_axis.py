@@ -11,6 +11,14 @@ checkout times each batched kernel on 16 pairs of 1024^2, every pair
 listed, against 16 single launches of its kernel. Times are CUDA-event
 medians of 20 runs of 10 calls after 3 warm-ups. One JSON line a run.
 Needs one CUDA card.
+
+    python3 probes/pair_axis.py --one-pair --out results.jsonl
+
+times this checkout's B1 (k = 8), B2, B3 and B4 at 4096^2 through their
+single entry against their pair-axis entry on a stack of one pair, as the
+level loop calls them (a fresh output a call), in turns single, stack,
+stack, single, four rounds; and the host time a call of each at 256^2,
+the launches queued without a sync (median of 20 runs of 50 calls).
 """
 import argparse
 import json
@@ -116,12 +124,94 @@ def batched() -> list:
             for name, (kern, singles) in runs.items()]
 
 
+def host_us(fn, runs: int = 20, warmup: int = 5, batch: int = 50) -> float:
+    """Median host microseconds a call, the calls queued without a sync."""
+    import time
+
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        times.append((time.perf_counter() - t0) / batch * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def one_pair() -> list:
+    """This checkout's single entries against the pair-axis entries on a
+    stack of one pair: device ms at 4096^2 in rounds, host us at 256^2."""
+    import torch
+
+    from opticalflow2d_tpu_torch.kernels import _build
+    from opticalflow2d_tpu_torch.kernels.diffusion_block import (
+        diffusion_block, diffusion_block_batch)
+    from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
+        diffusion_step_batch, diffusion_step_fused)
+    from opticalflow2d_tpu_torch.kernels.logger_norms import logger_norms, logger_norms_batch
+    from opticalflow2d_tpu_torch.kernels.warp_fused import (
+        compose, compose_batch, warp2d, warp2d_batch)
+
+    _build.build()
+    one = _build.Pairs([0], 1)
+
+    def runs(n):
+        imov, g, u, v = inputs(n, None)
+        i1, g1, u1, v1 = imov[None], g[None], u[None], v[None]
+        return {
+            "diffusion_block": (lambda: diffusion_block(u, g, 0.1, 8),
+                                lambda: diffusion_block_batch(u1, g1, 0.1, 8, one,
+                                                              torch.empty_like(u1))),
+            "diffusion_step": (lambda: diffusion_step_fused(u, g[:2], g[2], 0.1),
+                               lambda: diffusion_step_batch(u1, g1, 0.1, one,
+                                                            torch.empty_like(u1))),
+            "warp2d": (lambda: warp2d(imov, u),
+                       lambda: warp2d_batch(i1, u1, one, torch.empty_like(i1))),
+            "compose": (lambda: compose(u, v),
+                        lambda: compose_batch(u1, v1, one, torch.empty_like(u1))),
+            "logger_norms": (lambda: logger_norms(v, u),
+                             lambda: logger_norms_batch(v1, u1, one)),
+        }
+
+    out = []
+    for name, (single_fn, stack_fn) in runs(4096).items():
+        rec = {"run": "one_pair", "kernel": name, "shape": [4096, 4096],
+               "single_ms": [], "stack_ms": []}
+        for _ in range(4):
+            for side in ("single", "stack", "stack", "single"):
+                rec[f"{side}_ms"].append(median_ms(single_fn if side == "single" else stack_fn))
+        out.append(rec)
+    for name, (single_fn, stack_fn) in runs(256).items():
+        out.append({"run": "one_pair_host", "kernel": name, "shape": [256, 256],
+                    "single_us": [host_us(single_fn), host_us(single_fn)],
+                    "stack_us": [host_us(stack_fn), host_us(stack_fn)]})
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", required=True)
+    ap.add_argument("--parent")
     ap.add_argument("--out", required=True)
+    ap.add_argument("--one-pair", action="store_true")
     ap.add_argument("--side", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.one_pair:
+        import torch
+
+        sys.path.insert(0, str(ROOT))
+        with open(args.out, "w") as f:
+            for rec in one_pair():
+                rec["card"] = torch.cuda.get_device_name(0)
+                print(json.dumps(rec), flush=True)
+                f.write(json.dumps(rec) + "\n")
+        return
+    if not args.parent:
+        ap.error("--parent is required without --one-pair")
     if args.side:  # one timed side, in a process of its own
         print(json.dumps(single(args.side)), flush=True)
         return

@@ -47,35 +47,51 @@ def tiled_pair(nx: int, ny: int, shift=(1.5, -0.8), seed: int = 0):
     return img(0.0, 0.0), img(*shift)
 
 
-def plain_solve_level_blocked(u, iref, imov, cfg, niter, scale, k, block_fn, recompute_fn):
+def plain_solve_level_blocked(u, irefs, imovs, cfg, niter, scale, k, block_fn, recompute_fn,
+                              batch=False):
     """The blocked level loop without its lookahead, the reference its
-    tests hold ``engine.registration._solve_level_blocked`` to: launch a
-    block, read its Logger sums at once, decide, launch the next. Same
-    arguments and result; no spans, no counters."""
+    tests hold ``engine.registration._solve_level_blocked`` to: on a stack
+    of pairs in lockstep, launch a block for the active pairs, read their
+    Logger sums at once, decide each pair's stop with the Logger's rule
+    written out here, keep a stopped pair's field in a stack of its own,
+    launch the next. Same arguments and result; no spans, no counters."""
     from opticalflow2d_tpu_torch.engine.registration import LevelTrace
+    from opticalflow2d_tpu_torch.kernels._build import Pairs
     from opticalflow2d_tpu_torch.kernels.derive import derive
     from opticalflow2d_tpu_torch.ops.warp import compose, warp2d
 
+    b = u.shape[0]
     tol = np.float32(cfg.convergence_tol)
     traces = []
     for _ in range(cfg.nrefine):
-        g = derive(iref, warp2d(imov, u))
-        u_est = torch.zeros_like(u)
-        errs = np.zeros(-(-niter // k) * k, np.float32)
-        it, conv = 0, False
-        while it < niter and not conv:
-            u_blk, sums = block_fn(u_est, g)
+        g = torch.stack([derive(irefs[p], warp2d(imovs[p], u[p])) for p in range(b)])
+        cur, final = torch.zeros_like(u), torch.zeros_like(u)
+        errs = np.zeros((b, -(-niter // k) * k), np.float32)
+        its = np.zeros(b, np.int64)
+        active = list(range(b)) if niter > 0 else []
+        while active:
+            nxt, sums = block_fn(cur, g, Pairs(active, b), None)
             s = sums.cpu().numpy()
-            prev = s[:, 1]
-            errs_blk = np.where(prev == 0, np.float32(0),
-                                s[:, 0] / np.where(prev == 0, np.float32(1), prev))
-            its = it + np.arange(k)
-            conv_vec = (errs_blk < tol) & (its > 1) & (its < niter)
-            conv = bool(conv_vec.any())
-            n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
-            u_est = recompute_fn(u_est, g, n_take) if n_take < k else u_blk
-            errs[it:it + n_take] = errs_blk[:n_take]
-            it += n_take
-        u = compose(u, u_est)
-        traces.append(LevelTrace(scale, torch.from_numpy(errs[:niter].copy()), it, 0))
+            still = []
+            for z, p in enumerate(active):
+                it, prev = int(its[p]), s[z, :, 1]
+                errs_blk = np.where(prev == 0, np.float32(0),
+                                    s[z, :, 0] / np.where(prev == 0, np.float32(1), prev))
+                t = it + np.arange(k)
+                conv_vec = (errs_blk < tol) & (t > 1) & (t < niter)
+                conv = bool(conv_vec.any())
+                n_take = int(np.argmax(conv_vec)) + 1 if conv else min(niter - it, k)
+                errs[p, it:it + n_take] = errs_blk[:n_take]
+                its[p] = it + n_take
+                if n_take < k:
+                    recompute_fn(cur, g, Pairs([p], b), n_take, final, None)
+                elif conv or its[p] == niter:
+                    final[p] = nxt[p]
+                else:
+                    still.append(p)
+            cur, active = nxt, still
+        u = torch.stack([compose(u[p], final[p]) for p in range(b)])
+        traces.append(LevelTrace(scale, torch.from_numpy(errs[:, :niter].copy()),
+                                 torch.from_numpy(its), torch.zeros(b, dtype=torch.int64),
+                                 torch.zeros(b, dtype=torch.int64)))
     return u, traces

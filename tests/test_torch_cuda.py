@@ -261,8 +261,12 @@ def test_register_gpu_matches_cpu_and_counts_launches(cuda):
     assert [t.iterations for t in gpu.traces] == [t.iterations for t in cpu.traces]
     assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
     assert gpu.motion.device == cuda
-    diffusion_path = ("diffusion_block", "diffusion_step", "warp2d", "compose", "upsample_motion")
+    # The level loop runs a stack of one pair: B1 and B2 by their pair-axis
+    # entries, B3 and U2 by their single ones.
+    diffusion_path = ("diffusion_block_batch", "diffusion_step_batch", "warp2d", "compose",
+                      "derive", "upsample_motion")
     assert all(kernels.LAUNCHES[name] > 0 for name in diffusion_path), kernels.LAUNCHES
+    assert kernels.LAUNCHES["diffusion_block"] == kernels.LAUNCHES["diffusion_step"] == 0
 
 
 def test_register_lookahead_equals_the_plain_loop_and_reads_once_a_block(cuda, monkeypatch):
@@ -311,6 +315,64 @@ def test_register_lookahead_equals_the_plain_loop_and_reads_once_a_block(cuda, m
     pinned = [e for e in runtime if ("HostAlloc" in e[0] or "HostRegister" in e[0])
               and e[1] >= first_end]
     assert not pinned, pinned
+
+
+def test_register_and_a_batch_of_one_pair_agree_and_launch_alike(cuda):
+    """``register`` runs the lockstep loop on a stack of one pair: a
+    ``register_batch`` of that pair gives its bits and counts and launches
+    as many B1, B2 and U2. Both run the same loop and kernel wrappers, so
+    this checks the wiring only; the route at one pair is held to the CPU
+    by ``test_register_gpu_matches_cpu_and_counts_launches``, and each
+    pair-axis kernel at one pair to its plain version and single entry by
+    ``chip_smoke.py``'s ``check_one_pair``."""
+    from opticalflow2d_tpu_torch.parallel import register_batch
+
+    iref, imov = (torch.from_numpy(x).to(cuda) for x in tiled_pair(256, 256))
+    cfg = RegConfig(method=Method.DIFFUSION, niter=(400,) * 3, nscales=2, nrefine=2,
+                    alpha=0.1)
+    kernels.reset_launches()
+    one = register(iref, imov, cfg)
+    launched_one = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    stack = register_batch(iref[None], imov[None], cfg, impl="vmap")
+    launched_stack = dict(kernels.LAUNCHES)
+    assert torch.equal(stack.motion[0], one.motion)
+    assert [int(t.iterations[0]) for t in stack.traces] == [t.iterations for t in one.traces]
+    assert all(torch.equal(t.errors[0], w.errors) for t, w in zip(stack.traces, one.traces))
+    for name in ("diffusion_block_batch", "diffusion_step_batch", "derive"):
+        assert launched_one[name] == launched_stack[name], name
+    assert launched_one["diffusion_block_batch"] > 0 and launched_one["derive"] > 0
+
+
+def test_a_4096_register_copies_and_fills_nothing_a_block(cuda):
+    """A 4096^2 diffusion level on the card, 51 blocks with no stop and the
+    cap 4 iterations into the last (recomputed by B2): besides the kernels
+    of the loop, its only device operations are one read of the sums a
+    block and the two zero fills of the motion and the first block's
+    start (no gather, scatter, copy or fill a block)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_bench import trace
+
+    iref, imov = (torch.from_numpy(x).to(cuda) for x in tiled_pair(4096, 4096))
+    cfg = RegConfig(method=Method.DIFFUSION, niter=(404,), nscales=0, nrefine=1, alpha=0.1,
+                    convergence_tol=0.0)
+    register(iref, imov, cfg)  # builds the kernels and warms the allocator
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = register(iref, imov, cfg)
+        torch.cuda.synchronize()
+    device, _, _ = trace.reduce_events(prof.profiler.kineto_results.events())
+    reads = -(-result.traces[0].iterations // cfg.block_k)
+    assert reads == kernels.LAUNCHES["diffusion_block_batch"] == 51
+    assert kernels.LAUNCHES["diffusion_step_batch"] == 4
+    to_host = [r for r in device if r[0].startswith("Memcpy DtoH")]
+    assert len(to_host) == reads
+    other = [r[0] for r in device if r[3] != "kernel" and not r[0].startswith("Memcpy DtoH")]
+    copies = [r[0] for r in device if r[3] == "kernel"
+              and any(w in r[0].lower() for w in ("copy", "fill", "index", "cat", "stack"))]
+    assert len(other) + len(copies) <= 2, (other, copies)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -847,13 +909,16 @@ def test_fft_route_matches_matmul_route_on_the_gpu(cuda):
 # a level; the Dirichlet solve's float32 noise can move a Logger stop, so it
 # runs a fixed 12 (chip_smoke.py's FLUID_SPECTRAL_PARITY_NITER and
 # DIRICHLET_PARITY).
+# The level loop takes B4 through its pair-axis entry (a stack of one pair).
 @pytest.mark.parametrize("method,extra,niter,want", [
-    (Method.CURVATURE, dict(alpha=0.1, tau=1.0, dct_impl="matmul"), (40, 30), ["logger_norms"]),
-    (Method.CURVATURE, dict(alpha=0.1, tau=1.0, dct_impl="fft"), (40, 30), ["logger_norms"]),
+    (Method.CURVATURE, dict(alpha=0.1, tau=1.0, dct_impl="matmul"), (40, 30),
+     ["logger_norms_batch"]),
+    (Method.CURVATURE, dict(alpha=0.1, tau=1.0, dct_impl="fft"), (40, 30),
+     ["logger_norms_batch"]),
     (Method.ELASTIC, dict(mu=0.5, lam=0.0, navier_lame_solver="spectral"), (40, 30),
-     ["logger_norms"]),
+     ["logger_norms_batch"]),
     (Method.ELASTIC, dict(mu=0.5, lam=0.0, navier_lame_solver="spectral_dirichlet",
-                          convergence_tol=0.0), (12, 12), ["logger_norms"]),
+                          convergence_tol=0.0), (12, 12), ["logger_norms_batch"]),
     (Method.FLUID, dict(mu=0.25, lam=0.0, navier_lame_solver="spectral"), (5, 5),
      ["fluid_metrics"]),
 ])
@@ -954,6 +1019,7 @@ def test_register_batch_gpu_equals_register(cuda, method, extra):
                 t.iterations for t in one.traces]
             assert _max_abs(res.motion[i], one.motion) == 0.0
     assert launches["warp2d_batch"] > 0 and launches["compose_batch"] > 0, launches
+    assert launches["derive"] > 0, launches  # U2, once a pair and refinement
     want = {Method.DIFFUSION: ["diffusion_block_batch"], Method.ELASTIC: ["elastic_block"],
             Method.CURVATURE: ["logger_norms_batch"]}[method]
     assert all(launches[name] > 0 for name in want), launches
