@@ -34,7 +34,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    same fields and checks: warp, compose, the fluid metrics and the three
    fluid kernels at 16384^2 and 8192^2. Then the motion upsample, bit for
    bit with signed zeros, from the cell's four levels to 4096^2, from
-   8192^2 to 16384^2 and at odd shapes. Then the strip kernels K1-K4 of the
+   8192^2 to 16384^2 and at odd shapes. Then the box downsample, bit for
+   bit: the slide cell's 4096^2 image to levels 1-4 and its field to the
+   seeds' levels 1-3, the same at 16384^2 (the fluid cell's, past 4096),
+   and 1000x777 to levels 1-6. Then the strip kernels K1-K4 of the
    strip-parallel driver on 4 strips of 4096^2 and of 1000x777 (nxl 250),
    each strip padded by the strip driver's halo exchange, against their plain
    versions and, concatenated, against the dense kernel's rows: the
@@ -164,7 +167,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    FFT routes. And the batched kernels on 16 pairs of 1024^2, each beside
    its plain version and 16 single-pair launches. And the motion upsample
    from 2048^2 and from 256^2 to 4096^2 beside its plain version, its
-   bound and its launches a call.
+   bound and its launches a call. And the box downsample from 4096^2 and
+   from 16384^2 to each level, image and field, beside its plain version,
+   its bound (the input read once, the output written once) and its
+   launches a call.
 7. Utilities: register_resumable on the 4096^2 blob diffusion run (3a),
    stopped after scale 2 and resumed, bit-equal to register with equal
    counts; utils.kernel_timer on B1 at 4096^2 beside phase 6's median;
@@ -201,6 +207,8 @@ from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     stack_derivs)
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
     diffusion_step_batch, diffusion_step_batch_ref, diffusion_step_fused, diffusion_step_ref)
+from opticalflow2d_tpu_torch.kernels.downsample import (
+    downsample_image, downsample_image_ref, downsample_motion, downsample_motion_ref)
 from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block, elastic_block_ref
 from opticalflow2d_tpu_torch.kernels.fluid_fused import (
     fluid_euler, fluid_euler_ref, fluid_iter, fluid_iter_ref, fluid_sweep_max,
@@ -217,6 +225,7 @@ from opticalflow2d_tpu_torch.kernels import elastic_block as k_el
 from opticalflow2d_tpu_torch.kernels import fluid_fused as k_fl
 from opticalflow2d_tpu_torch.kernels import warp_fused as k_wf
 from opticalflow2d_tpu_torch.metrics import ssd_reduction
+from opticalflow2d_tpu_torch.ops.resample import pyramid_dims
 from opticalflow2d_tpu_torch.parallel import make_mesh, make_register_sp, register_batch, spatial
 from opticalflow2d_tpu_torch.parallel.batch import _resolve_impl
 from opticalflow2d_tpu_torch.solvers.base import derivatives
@@ -484,6 +493,9 @@ KERNELS = {
     "upsample_motion": ("cuda", "opticalflow2d_tpu_torch/csrc/upsample.cu",
                         "none: the JAX package upsamples in jnp "
                         "(opticalflow2d_tpu/ops/resample.py:149)"),
+    "downsample": ("cuda", "opticalflow2d_tpu_torch/csrc/downsample.cu",
+                   "none: the JAX package downsamples in jnp "
+                   "(opticalflow2d_tpu/ops/resample.py:42)"),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
@@ -661,6 +673,8 @@ def phase_kernels(dev) -> dict:
     check_wide_offsets(err, dev, gen)
     torch.cuda.empty_cache()
     check_upsample(err, dev, gen)
+    torch.cuda.empty_cache()
+    check_downsample(err, dev, gen)
     torch.cuda.empty_cache()
     for nx, ny in STRIP_SHAPES:
         iref, imov = (x[:nx, :ny].contiguous() for x in pair_on(dev, "blob", max(nx, ny)))
@@ -1380,6 +1394,37 @@ def check_upsample(err: dict, dev, gen: torch.Generator) -> None:
         del got, want
 
 
+# The box downsample's inputs and the levels of an image and of a field:
+# the slide cell's 4096^2 and the fluid cell's 16384^2 to the pyramid's 4
+# levels and the seeds' 3, and a ragged 1000x777 to level 6, whose 66 x 64
+# patches take the direct route.
+DOWNSAMPLE_SHAPES = (((4096, 4096), 4, 3), ((16384, 16384), 4, 3), ((1000, 777), 6, 6))
+
+
+def check_downsample(err: dict, dev, gen: torch.Generator) -> None:
+    """The box downsample against its plain version bit for bit: an image
+    of values in [0, 1), and a field of 3 px with a tenth of its values
+    exact zeros of either sign."""
+    for shape, levels, field_levels in DOWNSAMPLE_SHAPES:
+        dims = pyramid_dims(shape, levels)
+        image = torch.rand(shape, generator=gen, device=dev)
+        u = torch.randn((2,) + shape, generator=gen, device=dev) * 3
+        u.view(-1)[::10] = 0.0
+        u.view(-1)[5::20] = -0.0
+        for level in range(1, levels + 1):
+            cases = [("image", downsample_image, downsample_image_ref, image)]
+            if level <= field_levels:
+                cases.append(("motion", downsample_motion, downsample_motion_ref, u))
+            for what, kern, plain, x in cases:
+                got, want = kern(x, dims[level]), plain(x, dims[level])
+                check(err, "downsample", got, want, dims[level], exact=True,
+                      source=list(x.shape), input=what)
+                require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                        f"downsample {what} {shape} -> {dims[level]}: the bits differ")
+                del got, want
+        del image, u
+
+
 def demons_fields(dev, gen: torch.Generator, nx: int, ny: int):
     """Fields from ``gen``: noise of 2 px, a displacement of up to +-40 px
     (a smooth field plus noise, so that samples fall inside, on the edges
@@ -2038,6 +2083,7 @@ def phase_times(dev) -> dict:
     times.update(strip_times(dev, imov, g, u, v))
     times.update(batch_times(dev))
     times.update(upsample_times(dev))
+    times.update(downsample_times(dev))
     emit({"phase": "times", "demons_tiles": {
         "demons_onepass": k_op.onepass_plan(KW),
         "demons_correspondence": k_df.correspondence_plan(KW),
@@ -2090,6 +2136,45 @@ def upsample_times(dev) -> dict:
         emit({"phase": "times", "kernel": "upsample_motion", "shape": list(dst),
               "source": [n_in, n_in], "launches_a_call": launches, **row})
         rows.setdefault("upsample_motion", row)
+    return rows
+
+
+def downsample_times(dev) -> dict:
+    """The box downsample against its plain version from the slide cell's
+    4096^2 and the fluid cell's 16384^2 to each pyramid level, image and
+    field, with its launches a call; the bound reads the input (4 B a
+    point) and writes the output (4 B an output point) once. Its yardstick
+    is ``avg_pool2d``, the same means in another order (without a field's
+    scale). The 4096^2 image to 2048^2 goes into the kernel table."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows = {}
+    for n in (N_MAIN, 16384):
+        dims = pyramid_dims((n, n), 4)
+        big = n > 4096
+        for what, kern, plain, planes in (("image", downsample_image, downsample_image_ref, 1),
+                                          ("motion", downsample_motion, downsample_motion_ref,
+                                           2)):
+            x = torch.rand(((2,) if planes == 2 else ()) + (n, n), generator=gen, device=dev)
+            pool_input = x.view(planes, n, n)
+            for level in range(1, 5):
+                dst = dims[level]
+                patch = (n // dst[0], n // dst[1])
+                kernels.reset_launches()
+                kern(x, dst)
+                launches = kernels.LAUNCHES["downsample"]
+                row = {"ms": median_ms(lambda: kern(x, dst)),
+                       "plain_ms": median_ms(lambda: plain(x, dst), runs=5 if big else 20,
+                                             warmup=1 if big else 3, batch=2 if big else 10),
+                       "bound_ms": 4 * planes * (n * n + dst[0] * dst[1]) / PEAK_BYTES_PER_S
+                       * 1e3, "bound_by": "bytes",
+                       "library_ms": median_ms(
+                           lambda: torch.nn.functional.avg_pool2d(pool_input, patch))}
+                emit({"phase": "times", "kernel": "downsample", "input": what,
+                      "shape": list(dst), "source": list(x.shape), "launches_a_call": launches,
+                      **row})
+                rows.setdefault("downsample", row)
+            del x, pool_input
+            torch.cuda.empty_cache()
     return rows
 
 

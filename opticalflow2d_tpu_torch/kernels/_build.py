@@ -82,6 +82,8 @@ _SIGNATURES = {
     "of2d_fluid_euler": ((_P, _P, _P, _P, _I, _I, _P), _I),
     "of2d_upsample_motion": ((_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P), _I),
     "of2d_derive": ((_P, _P, _P, _I, _I, _P), _I),
+    "of2d_downsample": ((_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+                        _I),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -47,6 +47,25 @@ def tiled_pair(nx: int, ny: int, shift=(1.5, -0.8), seed: int = 0):
     return img(0.0, 0.0), img(*shift)
 
 
+# (shape, level) of the pyramid's downsample: the shapes that pin each order
+# of ``ops/resample.py`` (``box_mean`` up to 4096; past it each branch of
+# ``box_product_accumulators``: x accumulators a = 1, 2 and 4 and y
+# accumulators b = 4, 2 and 1), and the extent of the 16384^2 fluid path,
+# whose level 2 is a 4x4 patch past 4096 (a 16384^2 grid is too large to
+# compare on the CPU).
+DOWNSAMPLE_CASES = [
+    ((48, 40), 1), ((64, 48), 1), ((64, 48), 2),
+    ((256, 256), 1), ((256, 256), 2),
+    ((512, 512), 1), ((512, 512), 2),
+    ((1024, 64), 1),
+    ((8224, 64), 1), ((8224, 64), 2), ((8224, 64), 3),
+    ((8224, 32), 1), ((8224, 32), 2), ((8224, 32), 3),
+    ((4104, 128), 2), ((4104, 256), 2), ((4104, 256), 3),
+    ((16384, 32), 1), ((16384, 32), 2),
+    ((16384, 64), 1), ((16384, 64), 2),
+]
+
+
 def plain_solve_level_blocked(u, irefs, imovs, cfg, niter, scale, k, block_fn, recompute_fn,
                               batch=False):
     """The blocked level loop without its lookahead, the reference its

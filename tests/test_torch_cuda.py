@@ -14,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import npy, plain_solve_level_blocked, tiled_pair
+from _torch_helpers import DOWNSAMPLE_CASES, npy, plain_solve_level_blocked, tiled_pair
 from opticalflow2d_tpu_torch import Method, RegConfig, kernels, register
 from opticalflow2d_tpu_torch.kernels import _build
 from opticalflow2d_tpu_torch.kernels import demons_fused, demons_onepass
 from opticalflow2d_tpu_torch.kernels.derive import derive, derive_ref
+from opticalflow2d_tpu_torch.kernels.downsample import (
+    downsample_image, downsample_image_ref, downsample_motion, downsample_motion_ref)
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block, diffusion_block_ref, stack_derivs)
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import (
@@ -194,6 +196,82 @@ def test_upsample_motion_rejects_what_the_kernel_does_not_take(cuda):
         upsample_motion(u[:1], (16, 16))
 
 
+# --- the box downsample (csrc/downsample.cu) ---------------------------------
+
+# Every case of test_torch_downsample.py's CASES; ragged crops to level 6 of
+# 1000 x 777 (66 x 64 patches there: past a tile, the direct route), a
+# non-power-of-two patch through a tile (300^2 at level 5: 33 x 33), a 2 x 2
+# patch on a width that is no power of two, and rows whose width is no
+# multiple of 4 past 4096 (4-B staging).
+DOWNSAMPLE_ODD = ([((1000, 777), level) for level in range(1, 7)]
+                  + [((300, 300), 5), ((100, 77), 1), ((4105, 33), 1), ((4105, 33), 3)])
+
+
+@pytest.mark.parametrize("shape,level", DOWNSAMPLE_CASES + DOWNSAMPLE_ODD,
+                         ids=lambda v: str(v))
+def test_downsample_equals_plain_bit_for_bit(cuda, shape, level):
+    """2D images, a ``[2, nx, ny]`` stack and a motion, each one launch a
+    call that neither synchronises nor copies from the host, with the plain
+    version's bits."""
+    dims = resample.pyramid_dims(shape, level)[level]
+    stack = torch.stack([torch.from_numpy(x) for x in tiled_pair(*shape)]).to(cuda)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [downsample_image(x, dims) for x in (stack[0], stack[1], stack)]
+        got_motion = downsample_motion(stack, dims)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.LAUNCHES["downsample"] == 4
+    for g, x in zip(got, (stack[0], stack[1], stack)):
+        assert _same_bits(g, downsample_image_ref(x, dims))
+    assert _same_bits(got_motion, downsample_motion_ref(stack, dims))
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_downsample_equals_plain_at_the_cells_levels(cuda, n):
+    """The cells' own pyramids: a 4096^2 and a 16384^2 image to levels 1-4
+    and their fields to the seeds' levels 1-3, on a field of 3 px with exact
+    zeros of both signs."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    image = torch.rand((n, n), generator=gen, device=cuda)
+    u = torch.randn((2, n, n), generator=gen, device=cuda) * 3
+    u.view(-1)[::10] = 0.0
+    u.view(-1)[5::20] = -0.0
+    dims = resample.pyramid_dims((n, n), 4)
+    for level in range(1, 5):
+        assert _same_bits(downsample_image(image, dims[level]),
+                          downsample_image_ref(image, dims[level])), level
+    for level in range(1, 4):
+        assert _same_bits(downsample_motion(u, dims[level]),
+                          downsample_motion_ref(u, dims[level])), level
+
+
+def test_register_launches_8_pyramid_and_3_seed_downsamples(cuda):
+    """An nscales = 4 ``register`` from zero motion: both images to levels
+    1-4 and the seeds of levels 3-1, one launch each."""
+    iref, imov = (torch.from_numpy(x).to(cuda) for x in tiled_pair(256, 256))
+    cfg = RegConfig(method=Method.DIFFUSION, niter=(40,) * 5, nscales=4, nrefine=2, alpha=0.1)
+    kernels.reset_launches()
+    register(iref, imov, cfg)
+    assert kernels.LAUNCHES["downsample"] == 8 + 3
+
+
+def test_downsample_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.rand((2, 16, 12), device=cuda)
+    with pytest.raises(ValueError, match="exceed"):
+        downsample_image(x, (32, 6))
+    with pytest.raises(ValueError, match="contiguous"):
+        downsample_image(x.transpose(1, 2), (6, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        downsample_motion(x[:, ::2], (4, 6))
+    with pytest.raises(TypeError):
+        downsample_image(x.double(), (8, 6))
+    with pytest.raises(ValueError, match=r"\[2, nx, ny\]"):
+        downsample_motion(x[:1], (8, 6))
+
+
 # --- the level's derivatives (csrc/derive.cu) --------------------------------
 
 # Both border rows and columns alone (2 x 2), rows of one and of four
@@ -262,9 +340,9 @@ def test_register_gpu_matches_cpu_and_counts_launches(cuda):
     assert _max_abs(gpu.motion.cpu(), cpu.motion) <= 1e-5
     assert gpu.motion.device == cuda
     # The level loop runs a stack of one pair: B1 and B2 by their pair-axis
-    # entries, B3 and U2 by their single ones.
+    # entries, B3 and U2 by their single ones; U3 the pyramid.
     diffusion_path = ("diffusion_block_batch", "diffusion_step_batch", "warp2d", "compose",
-                      "derive", "upsample_motion")
+                      "derive", "upsample_motion", "downsample")
     assert all(kernels.LAUNCHES[name] > 0 for name in diffusion_path), kernels.LAUNCHES
     assert kernels.LAUNCHES["diffusion_block"] == kernels.LAUNCHES["diffusion_step"] == 0
 

@@ -20,7 +20,7 @@ import torch
 
 import opticalflow2d_tpu as J
 import opticalflow2d_tpu_torch as T
-from _torch_helpers import assert_close, npy, tiled_pair, tt
+from _torch_helpers import DOWNSAMPLE_CASES, assert_close, npy, tiled_pair, tt
 from opticalflow2d_tpu.ops.resample import downsample_image as j_downsample_image
 from opticalflow2d_tpu_torch.interop import config_from_jax
 from opticalflow2d_tpu_torch.ops.resample import downsample_image, pyramid_dims
@@ -28,22 +28,9 @@ from opticalflow2d_tpu_torch.ops.resample import downsample_image, pyramid_dims
 EXACT = dict(warp_halo=0, warp_halo_outer=0, warp_halo_auto=False)
 
 # (shape, level) -> pixels that differ from the JAX package, for each of
-# iref and imov, the 2D images and the [2, nx, ny] stack of both. Past
-# 4096 the cases pin each branch of ``box_product_accumulators``: x
-# accumulators a = 1, 2 and 4 and y accumulators b = 4, 2 and 1.
-CASES = {
-    ((48, 40), 1): (0, 0), ((64, 48), 1): (0, 0), ((64, 48), 2): (0, 0),
-    ((256, 256), 1): (0, 0), ((256, 256), 2): (0, 0),
-    ((512, 512), 1): (0, 0), ((512, 512), 2): (0, 0),
-    ((1024, 64), 1): (0, 0),
-    ((8224, 64), 1): (0, 0), ((8224, 64), 2): (0, 0), ((8224, 64), 3): (0, 0),
-    ((8224, 32), 1): (0, 0), ((8224, 32), 2): (0, 0), ((8224, 32), 3): (0, 0),
-    ((4104, 128), 2): (0, 0), ((4104, 256), 2): (0, 0), ((4104, 256), 3): (0, 0),
-    # The extent of the 16384^2 fluid path, whose level 2 is a 4x4 patch
-    # past 4096 (a 16384^2 grid is too large to compare on the CPU).
-    ((16384, 32), 1): (0, 0), ((16384, 32), 2): (0, 0),
-    ((16384, 64), 1): (0, 0), ((16384, 64), 2): (0, 0),
-}
+# iref and imov, the 2D images and the [2, nx, ny] stack of both: none at
+# any of the cases (``_torch_helpers.DOWNSAMPLE_CASES``).
+CASES = {case: (0, 0) for case in DOWNSAMPLE_CASES}
 
 
 def _differing(x: np.ndarray, dims) -> int:
