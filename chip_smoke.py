@@ -59,11 +59,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    Dirichlet system) and run again with the caller's TF32 switches on
    (cuBLAS and cuDNN), which must give the same bits and be restored; the
    fft route against the matmul route on the card. Then B1 (k = 8 and 3),
-   B2, B3 (warp and compose) and B4 batched over 3 pairs of 1000x777 and of
-   1024^2, all listed and the shuffled subset (2, 0): each pair bit-equal
-   to its own single-pair launch and to the plain version (B4's sums bit
-   for bit against the single launch, within 1e-5 relative of the plain
-   version).
+   B2, B3 (warp and compose), B4, B5, B7 and U2 batched over 3 pairs of
+   1000x777, of 1024^2 and of the 4DCT cell's 512^2 and 256^2, all listed
+   and the shuffled subset (2, 0): each pair bit-equal to its own
+   single-pair launch and to the plain version (B4's sums bit for bit
+   against the single launch, within 1e-5 relative of the plain version;
+   B5's three numbers and B7's max |R|^2 bit for bit against both; U2's
+   single launches also bit-equal to the plain version), and the pairs
+   left out of the subset unwritten by B7 and U2.
 3. The main paths through the session API at 4096^2, each with the launch
    counts set to 0 just before it and read just after:
    a. diffusion on a pair of three blobs, 5 levels (SSD reduction >= 0.9,
@@ -114,9 +117,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
       the blob pair at 1024^2 (each shift's components scaled by factors
       in [0.5, 1.5] from the seed; nscales 2) by diffusion, 4 pairs of the tiled pair at
       1024^2 by elastic [0.5, 0] and curvature (matmul route, 100
-      iterations a level), 4 at 512^2 by fluid (impl "auto", which must
-      resolve to map); each run by the lockstep driver (impl "vmap", B1-B4
-      batched and B6 a pair) and by map, and a Python loop of register as
+      iterations a level), 4 at 512^2 by fluid (impl "auto" must resolve
+      to vmap); each run by the lockstep driver (impl "vmap", B1-B4
+      batched and B6 a pair; fluid B7 and B5 batched, one read an
+      iteration) and by map, and a Python loop of register as
       the reference: every pair's counts equal to its register's and its
       motion bit-equal, the diffusion pairs
       stopping at two or more count vectors, each with SSD reduction >=
@@ -202,6 +206,8 @@ from opticalflow2d_tpu_torch.kernels.demons_onepass import (
     thirion_onepass, thirion_onepass_ref)
 from opticalflow2d_tpu_torch.kernels import demons_fused as k_df
 from opticalflow2d_tpu_torch.kernels import demons_onepass as k_op
+from opticalflow2d_tpu_torch.kernels.derive import (
+    derive, derive_batch, derive_batch_ref, derive_ref)
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (
     diffusion_block, diffusion_block_batch, diffusion_block_batch_ref, diffusion_block_ref,
     stack_derivs)
@@ -211,11 +217,11 @@ from opticalflow2d_tpu_torch.kernels.downsample import (
     downsample_image, downsample_image_ref, downsample_motion, downsample_motion_ref)
 from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block, elastic_block_ref
 from opticalflow2d_tpu_torch.kernels.fluid_fused import (
-    fluid_euler, fluid_euler_ref, fluid_iter, fluid_iter_ref, fluid_sweep_max,
-    fluid_sweep_max_ref)
+    fluid_euler, fluid_euler_ref, fluid_iter, fluid_iter_batch, fluid_iter_batch_ref,
+    fluid_iter_ref, fluid_sweep_max, fluid_sweep_max_ref)
 from opticalflow2d_tpu_torch.kernels.logger_norms import (
-    fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_batch, logger_norms_batch_ref,
-    logger_norms_ref)
+    fluid_metrics, fluid_metrics_batch, fluid_metrics_batch_ref, fluid_metrics_ref,
+    logger_norms, logger_norms_batch, logger_norms_batch_ref, logger_norms_ref)
 from opticalflow2d_tpu_torch.kernels.upsample import upsample_motion, upsample_motion_ref
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
     compose, compose_batch, compose_batch_ref, compose_ref, warp2d, warp2d_batch,
@@ -374,11 +380,11 @@ BATCH_PATHS = (
     ("batch_curvature", Method.CURVATURE, CURVATURE, "tiled", N_BATCH, 4, TILED_NSCALES,
      CURVATURE_NITER, {"dct_impl": "matmul"}, ("vmap", "map"), 0.0),
     ("batch_fluid", Method.FLUID, [0.25, 0.0], "tiled", N_PARITY, 4, TILED_NSCALES, NITER, {},
-     ("auto",), 0.0),
+     ("vmap", "map"), 0.0),
 )
 # The batched kernels' checks: 3 pairs of these shapes, all listed and a
-# shuffled subset.
-BATCH_KERNEL_SHAPES = ((1000, 777), (1024, 1024))
+# shuffled subset; the last two are the 4DCT cell's levels.
+BATCH_KERNEL_SHAPES = ((1000, 777), (1024, 1024), (512, 512), (256, 256))
 BATCH_KERNEL_PAIRS = ([0, 1, 2], [2, 0])
 BATCH_KS = (8, 3)
 # B1 on a stack of one pair, as the level loop runs it for ``register``:
@@ -387,7 +393,8 @@ ONE_PAIR_KS = (8, 5)
 # The batched kernels and the single-pair kernels whose work they repeat per pair.
 BATCHED = {"diffusion_block_batch": "diffusion_block", "diffusion_step_batch": "diffusion_step",
            "warp2d_batch": "warp2d", "compose_batch": "compose",
-           "logger_norms_batch": "logger_norms"}
+           "logger_norms_batch": "logger_norms", "fluid_iter_batch": "fluid_iter",
+           "fluid_metrics_batch": "fluid_metrics", "derive_batch": "derive"}
 
 # The main paths: (name, method, regparams, pair, nscales). DIFFUSION_TILED
 # is the dense diffusion run beside sp_diffusion, on its pair.
@@ -490,6 +497,14 @@ KERNELS = {
                       "opticalflow2d_tpu/pallas_kernels/warp_fused.py:173"),
     "logger_norms_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/logger_norms.cu",
                            "opticalflow2d_tpu/pallas_kernels/logger_norms.py:178"),
+    "fluid_iter_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/fluid_iter.cu",
+                         "opticalflow2d_tpu/pallas_kernels/fluid_fused.py:188"),
+    "fluid_metrics_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/logger_norms.cu",
+                            "opticalflow2d_tpu/pallas_kernels/logger_norms.py:129"),
+    "derive": ("cuda", "opticalflow2d_tpu_torch/csrc/derive.cu",
+               "none: the JAX package derives in jnp (opticalflow2d_tpu/solvers/base.py)"),
+    "derive_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/derive.cu",
+                     "none: the JAX package derives in jnp (opticalflow2d_tpu/solvers/base.py)"),
     "upsample_motion": ("cuda", "opticalflow2d_tpu_torch/csrc/upsample.cu",
                         "none: the JAX package upsamples in jnp "
                         "(opticalflow2d_tpu/ops/resample.py:149)"),
@@ -516,7 +531,8 @@ KW = 5  # the demons kernelwidth of the main paths
 # material derivative and max |R|^2 (20) to the force and candidates, as
 # does the sweep-and-max pass, which writes no R; the Euler pass is the
 # material derivative and the gated update (20); the fluid metrics are the
-# Logger sums and the determinant with its minimum.
+# Logger sums and the determinant with its minimum. The derivatives read two
+# images and write three planes: two central differences and a difference.
 ELASTIC_K = 4
 # A strip kernel does its dense kernel's work on the strip's pixels and
 # also reads the halo rows of its padded inputs (STRIP_PADDED planes, 8 rows
@@ -542,12 +558,12 @@ STRIP_PADDED = {"diffusion_block_strip": 5, "elastic_block_strip": 5, "fluid_ite
 PLANES = {"diffusion_block": 7, "diffusion_step": 7, "warp2d": 4, "compose": 6,
           "logger_norms": 4, "demons_onepass": 6, "demons_correspondence": 6,
           "compose_smooth": 6, "elastic_block": 7, "fluid_iter": 11, "fluid_metrics": 4,
-          "fluid_sweep_max": 9, "fluid_euler": 6}
+          "fluid_sweep_max": 9, "fluid_euler": 6, "derive": 5}
 OPS = {"diffusion_block": 8 * 33, "diffusion_step": 21, "warp2d": 25, "compose": 36,
        "logger_norms": 12, "demons_onepass": 93 + 16 * KW,
        "demons_correspondence": 45 + 8 * KW, "compose_smooth": 36 + 8 * KW,
        "elastic_block": ELASTIC_K * 50, "fluid_iter": 58, "fluid_metrics": 26,
-       "fluid_sweep_max": 58, "fluid_euler": 20}
+       "fluid_sweep_max": 58, "fluid_euler": 20, "derive": 5}
 
 
 PLANES.update({name: PLANES[single] for name, single in BATCHED.items()})
@@ -734,11 +750,12 @@ def check_pairs(err: dict, name: str, shape, pairs, got, single, plain, sums=Non
 
 
 def check_batch_kernels(err: dict, dev, gen: torch.Generator, nx: int, ny: int) -> None:
-    """B1 (k = 8 and 3), B2, B3 (warp, compose) and B4 batched on
-    BATCH_KERNEL_PAIRS pairs of blob pairs shifted apart: every pair, and a
-    shuffled subset, each equal to its own single-pair launch and to the
-    plain version (B4's sums: bit for bit against the single launch,
-    within SUMS_RTOL of the plain version)."""
+    """B1 (k = 8 and 3), B2, B3 (warp, compose), B4, B5, B7 and U2 batched
+    on BATCH_KERNEL_PAIRS pairs of blob pairs shifted apart: every pair,
+    and a shuffled subset, each equal to its own single-pair launch and to
+    the plain version (B4's sums: bit for bit against the single launch,
+    within SUMS_RTOL of the plain version); B7 and U2 also leave the pairs
+    they are not given unwritten."""
     count = len(BATCH_KERNEL_PAIRS[0])
     irefs, imovs, _ = batch_stack(dev, "blob", max(nx, ny), count, nx, ny)
     d = derivatives(irefs, imovs)
@@ -776,6 +793,62 @@ def check_batch_kernels(err: dict, dev, gen: torch.Generator, nx: int, ny: int) 
         plain = logger_norms_batch_ref(u_total, disp, pairs)
         check_pairs(err, "logger_norms_batch", shape, pairs, [], [], [],
                     (list(sums), single, list(plain)))
+        check_fluid_batch(err, shape, pairs, u, fluid_velocity(u), g)
+        check_derive_batch(err, shape, pairs, irefs, imovs)
+
+
+def check_derive_batch(err: dict, shape, pairs, irefs, imovs) -> None:
+    """U2 batched on the listed pairs of a stack, into a NaN-filled output
+    stack: pair ``p``'s ``g``, from ``irefs[p]`` and the list's ``z``-th
+    warped image (``imovs[p]``), bit-equal to its single launch and to the
+    plain version, each single launch bit-equal to the plain version too,
+    and every pair left out of the list still NaN (unwritten)."""
+    warped = imovs[list(pairs)].contiguous()  # in list order
+    out = torch.full((irefs.shape[0], 3) + tuple(irefs.shape[1:]), float("nan"),
+                     device=irefs.device)
+    g = derive_batch(irefs, warped, pairs, out)
+    plain = derive_batch_ref(irefs, warped, pairs)
+    singles = [derive(irefs[p], warped[z]) for z, p in enumerate(pairs)]
+    check_pairs(err, "derive_batch", shape, pairs, [g[p] for p in pairs], singles,
+                [plain[p] for p in pairs])
+    for z, p in enumerate(pairs):
+        check(err, "derive", singles[z], derive_ref(irefs[p], warped[z]), shape[1:], exact=True)
+    left = [p for p in range(irefs.shape[0]) if p not in pairs]
+    require(all(bool(g[p].isnan().all()) for p in left),
+            f"derive_batch {shape} pairs {pairs}: wrote a pair it was not given")
+
+
+def check_fluid_batch(err: dict, shape, pairs, u, vel, g) -> None:
+    """B7 and B5 batched on the listed pairs of a stack, into a NaN-filled
+    velocity stack: each pair's vel', R and max |R|^2 and its three fluid
+    metrics bit-equal to its single launch and to the plain version, and
+    every pair left out of the list still NaN (unwritten)."""
+    fill = torch.full_like(vel, float("nan"))
+    for ref_stencil, bug in ((True, False), (False, True)):
+        args = (u, vel, g, *FLUID, ref_stencil, bug)
+        vel_out, r, maxsq = fluid_iter_batch(*args, pairs=pairs, vel_out=fill.clone())
+        ref_vel, ref_r, ref_maxsq = fluid_iter_batch_ref(*args, pairs=pairs)
+        singles = [fluid_iter(u[p], vel[p], g[p], *FLUID, ref_stencil, bug) for p in pairs]
+        info = dict(reference_stencil=ref_stencil, maxabs_bug=bug)
+        check_pairs(err, "fluid_iter_batch", shape, pairs,
+                    [vel_out[p] for p in pairs] + list(r),
+                    [s[0] for s in singles] + [s[1] for s in singles],
+                    [ref_vel[p] for p in pairs] + list(ref_r), **info)
+        require(all(torch.equal(maxsq[z], s[2]) and torch.equal(maxsq[z], ref_maxsq[z])
+                    for z, s in enumerate(singles)),
+                f"fluid_iter_batch {shape} pairs {pairs} {info}: max |R|^2 {maxsq} against "
+                f"{[float(s[2]) for s in singles]} and {ref_maxsq}")
+        left = [p for p in range(u.shape[0]) if p not in pairs]
+        require(all(bool(vel_out[p].isnan().all()) for p in left),
+                f"fluid_iter_batch {shape} pairs {pairs}: wrote a pair it was not given")
+    metrics = fluid_metrics_batch(vel, u, pairs)
+    single = [fluid_metrics(vel[p], u[p]) for p in pairs]
+    plain = fluid_metrics_batch_ref(vel, u, pairs)
+    check_pairs(err, "fluid_metrics_batch", shape, pairs, [], [], [],
+                (list(metrics), single, list(plain)))
+    require(all(torch.equal(metrics[z, 2], plain[z, 2]) for z in range(len(pairs))),
+            f"fluid_metrics_batch {shape} pairs {pairs}: jac_min {metrics[:, 2]} against the "
+            f"plain {plain[:, 2]}")
 
 
 def check_one_pair(err: dict, u, g, u_total, disp) -> None:
@@ -873,7 +946,7 @@ def drive_batch(dev, smi: str, name: str, method: Method, regparams, pair: str, 
         require(tuple(res.motion.shape) == (count, 2, n, n)
                 and bool(torch.isfinite(res.motion).all()), f"{name} {impl}: motion")
     if method == Method.FLUID:
-        require(_resolve_impl(cfg, "auto") == "map", f"{name}: auto is not map")
+        require(_resolve_impl(cfg, "auto", (n, n)) == "vmap", f"{name}: auto is not vmap")
     return launches
 
 
@@ -2055,14 +2128,16 @@ def phase_times(dev) -> dict:
                             lambda: fluid_sweep_max_ref(*fluid_args)),
         "fluid_euler": (lambda: fluid_euler(v, swept, gate),
                         lambda: fluid_euler_ref(v, swept, gate)),
+        "derive": (lambda: derive(iref, imov), lambda: derive_ref(iref, imov)),
     }
     times = {}
     for name, (kern, plain) in pairs.items():
         # No single PyTorch call computes any of these functions: grid_sample
         # has no edge renormalization and no pass-through, a conv2d no
         # renormalized border, no reduction gives both Logger sums (nor them
-        # and the minimum Jacobian determinant), and none runs an SOR sweep,
-        # the fused fluid iteration or the fluid Euler pass.
+        # and the minimum Jacobian determinant), none runs an SOR sweep, the
+        # fused fluid iteration or the fluid Euler pass, and torch.gradient
+        # gives the two derivatives without the difference or the pack.
         t = {"ms": median_ms(kern), "plain_ms": median_ms(plain), **bound(name, n * n),
              "library_ms": None}
         times[name] = t
@@ -2191,9 +2266,11 @@ def batch_times(dev) -> dict:
     rng = np.random.default_rng(SEED + 2)
     u = torch.from_numpy(rng.normal(0, 1, (BATCH, 2, N_BATCH, N_BATCH)).astype(np.float32)).to(dev)
     v = (torch.tanh(u) * 0.4).contiguous()
+    vel = (v.flip(1) * 0.5).contiguous()  # a fluid velocity, as phase_times's
     k = RegConfig(method=Method.DIFFUSION, niter=(1,)).block_k
     pairs = _build.Pairs(range(BATCH), BATCH)
     out = torch.empty_like(u)
+    gout = torch.empty((BATCH, 3, N_BATCH, N_BATCH), device=dev)
     every = range(BATCH)
     runs = {
         "diffusion_block_batch": (
@@ -2213,6 +2290,16 @@ def batch_times(dev) -> dict:
         "logger_norms_batch": (lambda: logger_norms_batch(u, v, pairs),
                                lambda: logger_norms_batch_ref(u, v, pairs),
                                lambda: [logger_norms(u[p], v[p]) for p in every]),
+        "fluid_iter_batch": (
+            lambda: fluid_iter_batch(v, vel, g, *FLUID, True, False, pairs, out),
+            lambda: fluid_iter_batch_ref(v, vel, g, *FLUID, True, False, pairs, out),
+            lambda: [fluid_iter(v[p], vel[p], g[p], *FLUID, True, False) for p in every]),
+        "fluid_metrics_batch": (lambda: fluid_metrics_batch(u, v, pairs),
+                                lambda: fluid_metrics_batch_ref(u, v, pairs),
+                                lambda: [fluid_metrics(u[p], v[p]) for p in every]),
+        "derive_batch": (lambda: derive_batch(irefs, imovs, pairs, gout),
+                         lambda: derive_batch_ref(irefs, imovs, pairs, gout),
+                         lambda: [derive(irefs[p], imovs[p]) for p in every]),
     }
     times = {}
     for name, (kern, plain, singles) in runs.items():

@@ -1,7 +1,9 @@
 // A level's image derivatives in one pass on Hopper (sm_90a): of2d_derive,
 // the force input of the variational and fluid level drivers
 // (engine/registration.py), built once a refinement and again at each fluid
-// regrid.
+// regrid; of2d_derive_batch, the same for the listed pairs of a stack in one
+// launch (the grid's z axis; the lockstep fluid driver's refinements and
+// regrids).
 //
 // Replaces: no TPU kernel. The JAX package forms the derivatives in jnp
 //   (opticalflow2d_tpu/solvers/base.py); the port's plain version
@@ -58,15 +60,23 @@ __device__ __forceinline__ void store_points(float* __restrict__ p, const float 
 
 // iref, warped [nx, ny] -> g [3, nx, ny]: (d/dx warped, d/dy warped,
 // warped - iref). kVec is 4 only where ny % 4 == 0, so a thread's points all
-// lie inside the row. nx >= 2 and ny >= 2.
-template <int kVec>
+// lie inside the row. nx >= 2 and ny >= 2. kBatch: blockIdx.z is a position
+// in the list ``pairs``; iref and g are those of pair pairs[z] of their
+// stacks, warped the z-th of its (in list order); 64-bit offsets.
+template <int kVec, bool kBatch>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
 derive_kernel(const float* __restrict__ iref, const float* __restrict__ warped,
-              float* __restrict__ g, int nx, int ny) {
+              float* __restrict__ g, int nx, int ny, const int* __restrict__ pairs) {
   const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * kVec;
   const int i0 = (blockIdx.y * blockDim.y + threadIdx.y) * kRows;
   if (j0 >= ny || i0 >= nx) return;
   const size_t n = static_cast<size_t>(nx) * ny;
+  if (kBatch) {
+    const size_t pair = static_cast<size_t>(pairs[blockIdx.z]);
+    iref += pair * n;
+    warped += static_cast<size_t>(blockIdx.z) * n;
+    g += pair * 3 * n;
+  }
   float above[kVec], at[kVec], below[kVec];
   load_points(warped + static_cast<size_t>(i0) * ny + j0, at);
   if (i0 > 0) load_points(warped + static_cast<size_t>(i0 - 1) * ny + j0, above);
@@ -110,15 +120,16 @@ derive_kernel(const float* __restrict__ iref, const float* __restrict__ warped,
   }
 }
 
-template <int kVec>
+template <int kVec, bool kBatch>
 int launch(const float* iref, const float* warped, float* g, int nx, int ny,
-           cudaStream_t stream) {
+           const int* pairs, int n_pairs, cudaStream_t stream) {
   const int columns = kThreadsY * kVec;
   const int rows = kThreadsX * kRows;
   const dim3 block(kThreadsY, kThreadsX);
-  const dim3 grid((ny + columns - 1) / columns, (nx + rows - 1) / rows);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  derive_kernel<kVec><<<grid, block, 0, stream>>>(iref, warped, g, nx, ny);
+  const dim3 grid((ny + columns - 1) / columns, (nx + rows - 1) / rows, n_pairs);
+  if (grid.y > 65535 || n_pairs < 1 || n_pairs > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  derive_kernel<kVec, kBatch><<<grid, block, 0, stream>>>(iref, warped, g, nx, ny, pairs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -130,6 +141,18 @@ int launch(const float* iref, const float* warped, float* g, int nx, int ny,
 extern "C" int of2d_derive(const float* iref, const float* warped, float* g, int nx, int ny,
                            cudaStream_t stream) {
   if (nx < 2 || ny < 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (ny % 4 == 0) return launch<4>(iref, warped, g, nx, ny, stream);
-  return launch<1>(iref, warped, g, nx, ny, stream);
+  if (ny % 4 == 0) return launch<4, false>(iref, warped, g, nx, ny, nullptr, 1, stream);
+  return launch<1, false>(iref, warped, g, nx, ny, nullptr, 1, stream);
+}
+
+// irefs [B, nx, ny], warped [n_pairs, nx, ny] (list order) -> g [B, 3, nx,
+// ny] of the n_pairs pairs listed in pairs (device int32, each in [0, B),
+// no repeats; the other pairs of g are not written): each pair's g equals
+// its own of2d_derive's of (irefs[p], warped[z]).
+extern "C" int of2d_derive_batch(const float* irefs, const float* warped, float* g,
+                                 const int* pairs, int n_pairs, int nx, int ny,
+                                 cudaStream_t stream) {
+  if (nx < 2 || ny < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (ny % 4 == 0) return launch<4, true>(irefs, warped, g, nx, ny, pairs, n_pairs, stream);
+  return launch<1, true>(irefs, warped, g, nx, ny, pairs, n_pairs, stream);
 }

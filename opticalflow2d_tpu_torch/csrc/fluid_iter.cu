@@ -2,7 +2,10 @@
 // force at the motion u, one red-black SOR sweep of the Navier-Lame system
 // on the velocity, the material derivative R = v - du/dx v_x - du/dy v_y,
 // and max |R|^2. Three kernels from one body:
-//   B7 fluid_iter writes vel' and R;
+//   B7 fluid_iter writes vel' and R; of2d_fluid_iter_batch takes the
+//      listed pairs of a stack in one launch (the grid's z axis; the
+//      lockstep fluid driver, engine/registration.py), each pair's vel' at
+//      its place in the stack, its R and max |R|^2 in list order;
 //   B8 fluid_sweep_max writes vel' only: R stays in registers, and
 //      fluid_euler.cu (B9) recomputes it for the Euler step;
 //   K3 fluid_iter_strip is B7 on one strip of the strip-parallel driver
@@ -74,6 +77,28 @@ int launch_fluid_iter(const float* u, const float* vel, const float* g, float* v
   return static_cast<int>(cudaGetLastError());
 }
 
+// B7 batched: one grid layer per listed pair, one max a pair.
+template <bool kRefStencil, bool kMaxabsBug>
+int launch_fluid_iter_batch(const float* u, const float* vel, const float* g, float* vel_out,
+                            float* r_out, float* partials, float* maxsq, const int* pairs,
+                            int n_pairs, int nx, int ny, SorScalars s, cudaStream_t stream) {
+  constexpr FluidPlan p = kFluidPlan;
+  constexpr int smem = fluid_smem_bytes(p);
+  auto* kernel = fluid_iter_batch_kernel<p.tx, p.ty, p.threads, p.min_blocks, kFluidRun,
+                                         kRefStencil, kMaxabsBug>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((ny + p.ty - 1) / p.ty, (nx + p.tx - 1) / p.tx, n_pairs);
+  kernel<<<grid, p.threads, smem, stream>>>(u, vel, g, vel_out, r_out, partials,
+                                            whole_image(nx), ny, s, pairs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  max_partials_kernel<<<n_pairs, kSumThreads, 0, stream>>>(partials, maxsq,
+                                                           static_cast<int>(grid.x * grid.y));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kStoreR>
 int dispatch(const float* u, const float* vel, const float* g, float* vel_out, float* r_out,
              float* partials, float* maxsq, Rows rows, int ny, SorScalars s,
@@ -112,6 +137,35 @@ extern "C" int of2d_fluid_iter(const float* u, const float* vel, const float* g,
   return dispatch<true>(u, vel, g, vel_out, r_out, partials, maxsq, whole_image(nx), ny,
                         SorScalars{mu, mpl, omw, inv_diag}, reference_stencil, maxabs_bug,
                         stream);
+}
+
+// B7 batched: u, vel [B, 2, nx, ny], g [B, 3, nx, ny] -> for the n_pairs
+// pairs listed in pairs (device int32, each in [0, B), no repeats) vel_out
+// [B, 2, nx, ny] at each pair's place (the other pairs are not written),
+// and r_out [n_pairs, 2, nx, ny] and maxsq [n_pairs] in list order;
+// partials [n_pairs, of2d_sor_nblocks(nx, ny)] is scratch. Each pair's
+// vel', R and max |R|^2 equal its own of2d_fluid_iter's.
+extern "C" int of2d_fluid_iter_batch(const float* u, const float* vel, const float* g,
+                                     float* vel_out, float* r_out, float* partials,
+                                     float* maxsq, const int* pairs, int n_pairs, int nx,
+                                     int ny, float mu, float mpl, float omw, float inv_diag,
+                                     int reference_stencil, int maxabs_bug,
+                                     cudaStream_t stream) {
+  if (n_pairs < 1 || n_pairs > kMaxPairs) return static_cast<int>(cudaErrorInvalidValue);
+  const SorScalars s{mu, mpl, omw, inv_diag};
+  if (reference_stencil)
+    return maxabs_bug ? launch_fluid_iter_batch<true, true>(u, vel, g, vel_out, r_out, partials,
+                                                            maxsq, pairs, n_pairs, nx, ny, s,
+                                                            stream)
+                      : launch_fluid_iter_batch<true, false>(u, vel, g, vel_out, r_out,
+                                                             partials, maxsq, pairs, n_pairs,
+                                                             nx, ny, s, stream);
+  return maxabs_bug ? launch_fluid_iter_batch<false, true>(u, vel, g, vel_out, r_out, partials,
+                                                           maxsq, pairs, n_pairs, nx, ny, s,
+                                                           stream)
+                    : launch_fluid_iter_batch<false, false>(u, vel, g, vel_out, r_out, partials,
+                                                            maxsq, pairs, n_pairs, nx, ny, s,
+                                                            stream);
 }
 
 // B8: as B7 without R: -> vel_out [2, nx, ny], maxsq [1].

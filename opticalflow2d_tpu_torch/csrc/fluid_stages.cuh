@@ -1,8 +1,8 @@
-// The stages of the fluid iteration kernels (fluid_iter.cu: B7, B8 and the
-// strip mode K3) on one tile in shared memory: staging, the red and black
-// SOR half-sweeps of the velocity, and the material derivative with its
-// store and max |R|^2. probes/fluid_iter.cuh builds the variants the design
-// was chosen from out of the same functions.
+// The stages of the fluid iteration kernels (fluid_iter.cu: B7, its pair
+// axis, B8 and the strip mode K3) on one tile in shared memory: staging,
+// the red and black SOR half-sweeps of the velocity, and the material
+// derivative with its store and max |R|^2. probes/fluid_iter.cuh builds
+// the variants the design was chosen from out of the same functions.
 //
 // Geometry. A thread block owns a TX x TY output tile and stages it with a
 // halo of 2 cells a side: u (2 planes), the velocity (2 planes), a second
@@ -139,14 +139,17 @@ __device__ __forceinline__ void fluid_block_max(float m, float* warp_max, size_t
   }
 }
 
-// B7 (kStoreR), B8 and K3 on one TX x TY tile per block.
-template <int TX, int TY, int NT, int MB, int R, bool kRef, bool kMaxabsBug, bool kStoreR>
-__global__ void __launch_bounds__(NT, MB)
-fluid_iter_kernel(const float* __restrict__ u, const float* __restrict__ vel,
-                  const float* __restrict__ g, float* __restrict__ vel_out,
-                  float* __restrict__ r_out, float* __restrict__ partials, Rows r, int ny,
-                  SorScalars s) {
-  extern __shared__ float smem[];
+// One TX x TY tile of B7, B8 or K3: stage, sweep, tail, and the tile's max
+// |R|^2 into partials[bid]. The tile is block (blockIdx.y, blockIdx.x) of
+// the planes at u, vel, g, vel_out and r_out.
+template <int TX, int TY, int NT, int R, bool kRef, bool kMaxabsBug, bool kStoreR>
+__device__ __forceinline__ void fluid_iter_tile(float* smem, const float* __restrict__ u,
+                                                const float* __restrict__ vel,
+                                                const float* __restrict__ g,
+                                                float* __restrict__ vel_out,
+                                                float* __restrict__ r_out, const Rows& r,
+                                                int ny, const SorScalars& s, size_t bid,
+                                                float* __restrict__ partials) {
   constexpr int h = kFluidHalo, ex = TX + 2 * h, ey = TY + 2 * h, pl = ex * ey;
   float* us = smem;
   float* cur = us + 2 * pl;
@@ -168,15 +171,51 @@ fluid_iter_kernel(const float* __restrict__ u, const float* __restrict__ vel,
                                                                r, i0, j0, vel_out, r_out)
           : fluid_body<NT, R, kRef, false, kMaxabsBug, kStoreR>(us, cur, nxt, gs, tile, TX, TY,
                                                                 s, r, i0, j0, vel_out, r_out);
-  fluid_block_max<NT>(m, warp_max, static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x,
-                      partials);
+  fluid_block_max<NT>(m, warp_max, bid, partials);
 }
 
-// maxsq = max over the blocks' partials.
+// B7 (kStoreR), B8 and K3 on one TX x TY tile per block.
+template <int TX, int TY, int NT, int MB, int R, bool kRef, bool kMaxabsBug, bool kStoreR>
+__global__ void __launch_bounds__(NT, MB)
+fluid_iter_kernel(const float* __restrict__ u, const float* __restrict__ vel,
+                  const float* __restrict__ g, float* __restrict__ vel_out,
+                  float* __restrict__ r_out, float* __restrict__ partials, Rows r, int ny,
+                  SorScalars s) {
+  extern __shared__ float smem[];
+  fluid_iter_tile<TX, TY, NT, R, kRef, kMaxabsBug, kStoreR>(
+      smem, u, vel, g, vel_out, r_out, r, ny, s,
+      static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x, partials);
+}
+
+// B7 batched: blockIdx.z is a position in the list ``pairs``. The planes of
+// pair pairs[z] start 2 (u, vel, vel_out) or 3 (g) planes a pair in, with
+// 64-bit offsets; R and the partials of position z start z pairs in, so
+// they come out in list order. Whole images only.
+template <int TX, int TY, int NT, int MB, int R, bool kRef, bool kMaxabsBug>
+__global__ void __launch_bounds__(NT, MB)
+fluid_iter_batch_kernel(const float* __restrict__ u, const float* __restrict__ vel,
+                        const float* __restrict__ g, float* __restrict__ vel_out,
+                        float* __restrict__ r_out, float* __restrict__ partials, Rows r,
+                        int ny, SorScalars s, const int* __restrict__ pairs) {
+  extern __shared__ float smem[];
+  const size_t plane = r.out_plane(ny);
+  const size_t pair = static_cast<size_t>(pairs[blockIdx.z]);
+  const size_t z = blockIdx.z;
+  const size_t tiles = static_cast<size_t>(gridDim.x) * gridDim.y;
+  fluid_iter_tile<TX, TY, NT, R, kRef, kMaxabsBug, true>(
+      smem, u + pair * 2 * plane, vel + pair * 2 * plane, g + pair * 3 * plane,
+      vel_out + pair * 2 * plane, r_out + z * 2 * plane, r, ny, s,
+      z * tiles + static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x, partials);
+}
+
+// maxsq = max over the blocks' partials; block x of the grid takes group x
+// of nblocks partials into maxsq[x] (one group a pair of a batched launch).
 __global__ void __launch_bounds__(kSumThreads)
 max_partials_kernel(const float* __restrict__ partials, float* __restrict__ maxsq,
                     int nblocks) {
   __shared__ float warps[kSumThreads / 32];
+  partials += static_cast<size_t>(blockIdx.x) * nblocks;
+  maxsq += blockIdx.x;
   float m = 0.f;
   for (int b = threadIdx.x; b < nblocks; b += kSumThreads) m = fmaxf(m, partials[b]);
 #pragma unroll

@@ -26,7 +26,9 @@
 // test (src/Image.cpp:189-218).
 //
 // Replaces: opticalflow2d_tpu/pallas_kernels/logger_norms.py,
-//   fluid_metrics_pallas (:129).
+//   fluid_metrics_pallas (:129). of2d_fluid_metrics_batch takes the listed
+//   pairs of two stacks in one launch (the grid's y axis; the lockstep
+//   fluid driver), their rows [dsum, psum, jac_min] in list order.
 // Bound on this card: device-memory bandwidth, as the pair: 16 B per pixel
 //   read. The determinant's four one-sided or central differences read the
 //   neighbouring rows and columns of u_new again, from the caches.
@@ -90,10 +92,14 @@ __device__ __forceinline__ float border_diff(const float* f, size_t p, size_t st
   return (f[p + step] - f[p - step]) * 0.5f;
 }
 
-__global__ void __launch_bounds__(kThreads)
-fluid_metrics_kernel(const float* __restrict__ u_new, const float* __restrict__ u_prev,
-                     float* __restrict__ partials, float* __restrict__ jac_partials, int nx,
-                     int ny) {
+// B5 on the chunk of block blockIdx.x of the fields at u_new, u_prev: the
+// block's pair sums into partials[2 row], its minimum determinant into
+// jac_partials[row].
+__device__ __forceinline__ void fluid_metrics_chunk(const float* __restrict__ u_new,
+                                                    const float* __restrict__ u_prev,
+                                                    float* __restrict__ partials,
+                                                    float* __restrict__ jac_partials, int nx,
+                                                    int ny, size_t row) {
   __shared__ float red[2 * kThreads / 32];
   __shared__ float mins[kThreads / 32];
   const size_t n = static_cast<size_t>(nx) * ny;
@@ -121,12 +127,31 @@ fluid_metrics_kernel(const float* __restrict__ u_new, const float* __restrict__ 
   for (int off = 16; off > 0; off >>= 1)
     jmin = fminf(jmin, __shfl_down_sync(0xffffffffu, jmin, off));
   if ((threadIdx.x & 31) == 0) mins[threadIdx.x >> 5] = jmin;
-  block_sum_pair<kThreads / 32>(dsum, psum, threadIdx.x, red,
-                                partials + 2 * static_cast<size_t>(blockIdx.x));
+  block_sum_pair<kThreads / 32>(dsum, psum, threadIdx.x, red, partials + 2 * row);
   if (threadIdx.x == 0) {  // block_sum_pair synchronised the block
     for (int w = 1; w < kThreads / 32; ++w) jmin = fminf(jmin, mins[w]);
-    jac_partials[blockIdx.x] = jmin;
+    jac_partials[row] = jmin;
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fluid_metrics_kernel(const float* __restrict__ u_new, const float* __restrict__ u_prev,
+                     float* __restrict__ partials, float* __restrict__ jac_partials, int nx,
+                     int ny) {
+  fluid_metrics_chunk(u_new, u_prev, partials, jac_partials, nx, ny, blockIdx.x);
+}
+
+// B5 batched: blockIdx.y is a position in the list ``pairs``; the fields of
+// pair pairs[y] start 2 planes a pair in (64-bit offsets), and its partials
+// rows follow the earlier positions' ([n_pairs][nblocks] rows).
+__global__ void __launch_bounds__(kThreads)
+fluid_metrics_batch_kernel(const float* __restrict__ u_new, const float* __restrict__ u_prev,
+                           float* __restrict__ partials, float* __restrict__ jac_partials,
+                           int nx, int ny, const int* __restrict__ pairs) {
+  const size_t pair = static_cast<size_t>(pairs[blockIdx.y]);
+  const size_t off = pair * 2 * static_cast<size_t>(nx) * ny;
+  fluid_metrics_chunk(u_new + off, u_prev + off, partials, jac_partials, nx, ny,
+                      static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x);
 }
 
 // *out = min over the blocks' partials.
@@ -142,6 +167,49 @@ min_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
   if (threadIdx.x == 0) {
     for (int w = 1; w < kSumThreads / 32; ++w) m = fminf(m, warps[w]);
     *out = m;
+  }
+}
+
+// B5 batched's reduction: block g takes group g of the partials into
+// out[3 g .. 3 g + 2]: the two sums in sum_partials_kernel's order (each
+// thread's blocks in turn, the warp tree, the warps in index order) and the
+// minimum in min_partials_kernel's, so each pair's three numbers equal its
+// single launch's bit for bit.
+__global__ void __launch_bounds__(kSumThreads)
+fluid_metrics_reduce_kernel(const float* __restrict__ partials,
+                            const float* __restrict__ jac_partials, float* __restrict__ out,
+                            int nblocks) {
+  __shared__ float warps[3 * kSumThreads / 32];
+  const size_t g = blockIdx.x;
+  partials += g * 2 * nblocks;
+  jac_partials += g * nblocks;
+  float a = 0.f, b = 0.f, m = INFINITY;
+  for (int k = threadIdx.x; k < nblocks; k += kSumThreads) {
+    a += partials[2 * static_cast<size_t>(k)];
+    b += partials[2 * static_cast<size_t>(k) + 1];
+    m = fminf(m, jac_partials[k]);
+  }
+  a = warp_sum(a);
+  b = warp_sum(b);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_down_sync(0xffffffffu, m, off));
+  constexpr int kWarps = kSumThreads / 32;
+  if ((threadIdx.x & 31) == 0) {
+    warps[threadIdx.x >> 5] = a;
+    warps[kWarps + (threadIdx.x >> 5)] = b;
+    warps[2 * kWarps + (threadIdx.x >> 5)] = m;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sa = 0.f, sb = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      sa += warps[w];
+      sb += warps[kWarps + w];
+    }
+    for (int w = 1; w < kWarps; ++w) m = fminf(m, warps[2 * kWarps + w]);
+    out[3 * g] = sa;
+    out[3 * g + 1] = sb;
+    out[3 * g + 2] = m;
   }
 }
 
@@ -194,5 +262,24 @@ extern "C" int of2d_fluid_metrics(const float* u_new, const float* u_prev, float
   const int rc = launch_sum_partials(partials, out, nblocks, 2, stream);
   if (rc != 0) return rc;
   min_partials_kernel<<<1, kSumThreads, 0, stream>>>(jac_partials, out + 2, nblocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B5 batched: u_new, u_prev [B, 2, nx, ny] -> out [n_pairs, 3] of the pairs
+// listed in pairs (device int32, each in [0, B)), in list order; partials
+// [n_pairs, nblocks, 3] is scratch. Each pair's row equals its own
+// of2d_fluid_metrics's. nx, ny >= 2.
+extern "C" int of2d_fluid_metrics_batch(const float* u_new, const float* u_prev,
+                                        float* partials, float* out, const int* pairs,
+                                        int n_pairs, int nx, int ny, cudaStream_t stream) {
+  if (n_pairs < 1 || n_pairs > kMaxPairs) return static_cast<int>(cudaErrorInvalidValue);
+  const int nblocks = of2d_logger_norms_nblocks(nx, ny);
+  float* jac_partials = partials + 2 * static_cast<size_t>(n_pairs) * nblocks;
+  fluid_metrics_batch_kernel<<<dim3(nblocks, n_pairs), kThreads, 0, stream>>>(
+      u_new, u_prev, partials, jac_partials, nx, ny, pairs);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fluid_metrics_reduce_kernel<<<n_pairs, kSumThreads, 0, stream>>>(partials, jac_partials, out,
+                                                                   nblocks);
   return static_cast<int>(cudaGetLastError());
 }

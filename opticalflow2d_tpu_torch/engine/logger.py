@@ -7,7 +7,9 @@ a loop that reads every iteration), each normalised as the loop's own sums
 are, and takes back the iterations to keep and whether the stop fired. It
 works element by element on numpy float32 scalars: a block holds at most a
 few iterations, and the host's turnaround between blocks is the pace of the
-coarse levels.
+coarse levels. ``iteration_stops`` is the same rule for one iteration of
+many pairs at once, on numpy arrays (the lockstep fluid loop reads
+hundreds of pairs an iteration).
 """
 
 from __future__ import annotations
@@ -32,3 +34,12 @@ def block_stop(errs, it: int, niter: int, tol) -> tuple[int, bool]:
         if e < tol and it + t > 1:
             return t + 1, True
     return len(errs), False
+
+
+def iteration_stops(d: np.ndarray, p: np.ndarray, it: int, niter: int, tol):
+    """``relative_errors`` and ``block_stop`` of one iteration ``it`` (below
+    ``niter``) of many pairs: ``d``, ``p`` float32 arrays of the pairs'
+    magnitudes; returns their errors, each bit-equal to
+    ``relative_errors``'s, and whether each pair stops there."""
+    errs = np.where(p == 0, np.float32(0), d / np.where(p == 0, np.float32(1), p))
+    return errs, (errs < tol) & (it > 1) & (it < niter)

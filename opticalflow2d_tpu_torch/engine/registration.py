@@ -33,9 +33,9 @@ import numpy as np
 import torch
 
 from opticalflow2d_tpu_torch.config import Method, RegConfig
-from opticalflow2d_tpu_torch.engine.logger import block_stop, relative_errors
+from opticalflow2d_tpu_torch.engine.logger import block_stop, iteration_stops, relative_errors
 from opticalflow2d_tpu_torch.kernels._build import Pairs
-from opticalflow2d_tpu_torch.kernels.derive import derive
+from opticalflow2d_tpu_torch.kernels.derive import derive, derive_batch
 # diffusion_block stays importable here: the benchmark's tests patch it.
 from opticalflow2d_tpu_torch.kernels.diffusion_block import (  # noqa: F401
     diffusion_block,
@@ -43,7 +43,11 @@ from opticalflow2d_tpu_torch.kernels.diffusion_block import (  # noqa: F401
 )
 from opticalflow2d_tpu_torch.kernels.diffusion_fused import diffusion_step_batch
 from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block
-from opticalflow2d_tpu_torch.kernels.logger_norms import fluid_metrics, logger_norms_batch
+from opticalflow2d_tpu_torch.kernels.logger_norms import (
+    fluid_metrics,
+    fluid_metrics_batch,
+    logger_norms_batch,
+)
 from opticalflow2d_tpu_torch.kernels.warp_fused import compose_batch, warp2d_batch
 from opticalflow2d_tpu_torch.ops.resample import (
     downsample_image,
@@ -56,7 +60,11 @@ from opticalflow2d_tpu_torch.solvers.base import Derivatives, lssd_force
 from opticalflow2d_tpu_torch.solvers.curvature import make_curvature_step
 from opticalflow2d_tpu_torch.solvers.demons import make_demons_step
 from opticalflow2d_tpu_torch.solvers.elastic import elastic_step
-from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
+from opticalflow2d_tpu_torch.solvers.fluid import (
+    make_fluid_batch_step,
+    make_fluid_step,
+    make_fluid_two_pass_step,
+)
 from opticalflow2d_tpu_torch.solvers.navier_lame import (
     make_dirichlet_navier_lame_solver,
     make_spectral_navier_lame_solver,
@@ -431,6 +439,176 @@ def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     return u, traces
 
 
+def _copy_rows(dst: torch.Tensor, src: torch.Tensor, idx: torch.Tensor,
+               scratch: torch.Tensor) -> None:
+    """``dst[p] = src[p]`` for each pair ``p`` of the device list ``idx``, as
+    many pairs at a time as ``scratch`` holds (it carries them)."""
+    for z in range(0, len(idx), scratch.shape[0]):
+        i = idx[z:z + scratch.shape[0]]
+        rows = torch.index_select(src, 0, i, out=scratch[:len(i)])
+        dst.index_copy_(0, i, rows)
+
+
+def _gather_stacks(stacks, where: np.ndarray, scratch: torch.Tensor) -> int:
+    """The index of the stack of ``stacks`` that holds most pairs' fields
+    (``where[p]`` the index of pair ``p``'s), the other pairs' copied into
+    it through ``scratch``."""
+    keep = int(np.bincount(where, minlength=len(stacks)).argmax())
+    for w in range(len(stacks)):
+        if w != keep and (where == w).any():
+            idx = torch.from_numpy(np.flatnonzero(where == w)).to(stacks[keep].device)
+            _copy_rows(stacks[keep], stacks[w], idx, scratch)
+    return keep
+
+
+def _fluid_chunk(b: int) -> int:
+    """The most pairs of a stack of ``b`` that the lockstep fluid loop
+    copies, composes, warps or derives at once outside its kernels' pair
+    axes: a quarter of the stack. A regrid's chunk then holds at most three
+    fields of this many pairs (estimate, motion, composed), less than the
+    R of all ``b`` pairs at a level's first step, and the tail's gather has
+    a buffer of its own: the loop's peak falls at that first step whatever
+    the data, and does not follow how many pairs regrid or stop together."""
+    return max(1, b // 4)
+
+
+def _solve_level_fluid_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int):
+    """``_solve_level_fluid`` on a stack of pairs ``u [B, 2, nx, ny]`` in
+    lockstep, for the red-black SOR sweep at extents up to
+    ``_DERIV_BARRIER_MIN_EXTENT`` (``lockstep_refusal``). Each iteration
+    launches B7 once for the pairs still iterating (``make_fluid_batch_step``:
+    their Euler tails on per-pair timesteps) and B5 once into ``[n, 3]``
+    (``fluid_metrics_batch``), and makes one host read of it, from which
+    each pair's Logger error, stop and regrid test are decided as
+    ``_solve_level_fluid`` decides them for one pair. The pairs that
+    regrid at an iteration are composed, warped and derived again together,
+    ``_fluid_chunk`` at a time (B3, U2 by its pair axis). Each pair keeps
+    its own velocity (zero at the level's start, kept across its
+    refinements and regrids), its Logger ``prev`` (which survives a regrid)
+    and its counts; a pair that stops leaves the launches. So every pair's
+    motion, counts and errors equal its own ``register``'s bit for bit.
+
+    The estimates and the velocities each ping-pong between two stacks; the
+    kernels write only the listed pairs, so a stopped pair's fields stay in
+    the stack last written, and are gathered at the end. A pair that
+    regridded enters the next iteration at a zero estimate; its ``prev``,
+    the estimate it composed, waits in ``held`` and is put back into the
+    input stack once the step has read it, before B5 reads it as ``prev``.
+    The level's motion ``u`` is the caller's and is not written: the solve
+    works on a copy. The stacks, ``held`` and the chunk ``scratch`` are
+    made whatever the data, so the loop's memory does not depend on it."""
+    b, _, nx, ny = u.shape
+    step = make_fluid_batch_step(cfg.mu, cfg.lam, cfg.omega, dumax=cfg.dumax,
+                                 timestep_skip=cfg.timestep_skip,
+                                 maxabs_bug=cfg.compat.maxabs_bug,
+                                 reference_stencil=cfg.compat.elastic_stencil_reference)
+    n_pix = np.float32(nx * ny)
+    tol = np.float32(cfg.convergence_tol)
+    threshold = np.float32(cfg.regrid_threshold)
+    vel = [torch.zeros_like(u), torch.empty_like(u)]
+    v_at = np.zeros(b, np.int64)  # the velocity stack of each pair
+    scratch = torch.empty((_fluid_chunk(b), 2, nx, ny), dtype=u.dtype, device=u.device)
+    u = u.clone()
+    traces = []
+    for refine in range(cfg.nrefine):
+        with span("solve", scale=scale, refine=refine, nx=nx, ny=ny):
+            with span("derive"):
+                warped = _gather(warp2d, warp2d_batch, imovs, u)
+                g = derive_batch(irefs, warped, _everyone(b),
+                                 torch.empty((b, 3, nx, ny), dtype=u.dtype, device=u.device))
+                del warped
+            v = _gather_stacks(vel, v_at, scratch) if refine else 0
+            v_at[:] = v
+            est = [torch.zeros_like(u), torch.empty_like(u)]
+            held = torch.empty_like(u)
+            cur = 0  # the stack of the active pairs' estimates
+            errs = np.zeros((b, niter), np.float32)
+            regrids = np.zeros(b, np.int64)
+            e_at = np.zeros(b, np.int64)  # the stack of a stopped pair's estimate
+            its = np.zeros(b, np.int64)
+            active = _everyone(b) if niter > 0 else None
+            ids = np.arange(b)  # the active pairs
+            it = 0  # their common count
+            prev = None  # the device list of the pairs whose Logger prev is in held
+            while active is not None:
+                nxt = 1 - cur
+                step(est[cur], vel[v], g, active, vel[1 - v], est[nxt], scratch)
+                if prev is not None:
+                    _copy_rows(est[cur], held, prev, scratch)
+                    prev = None
+                sums = fluid_metrics_batch(est[nxt], est[cur], active)
+                with span("read", site="fluid_batch"):
+                    s = sums.cpu().numpy()  # the one host read per iteration
+                    err, conv = iteration_stops(s[:, 0] / n_pix, s[:, 1] / n_pix, it, niter,
+                                                tol)
+                    errs[ids, it] = err
+                    its[ids] = it + 1
+                    if cfg.verbose_stream:
+                        for p, e in zip(ids, err):
+                            print(f"  [pair {p}] [scale {scale}] iteration {it + 1}: "
+                                  f"relative error {float(e):.6f}", flush=True)
+                    again = ids[~conv & (s[:, 2] < threshold)]
+                    going = ~conv & (it + 1 < niter)
+                    e_at[ids[~going]], v_at[ids[~going]] = nxt, 1 - v
+                    ids = ids[going]
+                if len(again):
+                    prev = _regrid_batch(u, g, est[nxt], held, again.tolist(), ids.tolist(),
+                                         irefs, imovs, scale)
+                    regrids[again] += 1
+                cur, v, it = nxt, 1 - v, it + 1
+                if len(ids) != len(active):
+                    active = Pairs(ids.tolist(), b) if len(ids) else None
+            inc = est[_gather_stacks(est, e_at, scratch)]
+            est = held = None
+            with span("compose"):
+                u = _gather(compose, compose_batch, u, inc)
+            check_level_field(scale, refine, inc, u)
+            del inc  # not held through the next refinement
+            traces.append(LevelTrace(scale, torch.from_numpy(errs), torch.from_numpy(its),
+                                     torch.from_numpy(regrids),
+                                     torch.zeros(b, dtype=torch.int64)))
+    return u, traces
+
+
+def _regrid_batch(u, g, new, held, again: list, still: list, irefs, imovs, scale: int):
+    """The regrids of the pairs ``again`` at one iteration of
+    ``_solve_level_fluid_batch``, ``_fluid_chunk`` at a time: each composes
+    its estimate (in ``new``) into its motion in ``u`` (in place), its
+    moving image is warped and derived again into ``g``, its estimate is
+    kept in ``held`` (its Logger ``prev``) and zeroed in ``new``. Returns the
+    device list of the pairs of ``again`` still iterating (``still``), whose
+    ``prev`` is then in ``held``, or None."""
+    b, _, nx, ny = u.shape
+    with span("regrid", scale=scale, nx=nx, ny=ny, pairs=len(again)):
+        pairs = Pairs(again, b)
+        idx = pairs.on(u.device, torch.int64)
+        pairs.on(u.device)
+        c = _fluid_chunk(b)
+        parts = [pairs.part(z, z + c) for z in range(0, len(again), c)]
+        with span("compose"):
+            for part in parts:
+                i = part.on(u.device, torch.int64)
+                inc = new.index_select(0, i)
+                held.index_copy_(0, i, inc)
+                u.index_copy_(0, i, _gather(compose, compose_batch, u.index_select(0, i), inc))
+                del inc
+        with span("derive"):
+            for part in parts:
+                i = part.on(u.device, torch.int64)
+                warped = _gather(warp2d, warp2d_batch, imovs.index_select(0, i),
+                                 u.index_select(0, i))
+                derive_batch(irefs, warped, part, g)
+                del warped
+        new.index_fill_(0, idx, 0.0)
+    going = set(still)
+    keep = [p for p in again if p in going]
+    if not keep:
+        return None
+    if len(keep) == len(again):
+        return idx
+    return Pairs(keep, b).on(u.device, torch.int64)
+
+
 def _solve_level_demons(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     """Thirion / diffeomorphic demons: the solver re-warps and re-derives
     every iteration (reference ImageRegistrationDemons.cpp:86-137). The
@@ -558,18 +736,50 @@ def _each(fn, stack: torch.Tensor, *args) -> torch.Tensor:
     return torch.stack([fn(x, *args) for x in stack])
 
 
+# The families the lockstep batch driver runs.
+_LOCKSTEP = (Method.DIFFUSION, Method.CURVATURE, Method.ELASTIC, Method.FLUID)
+
+
+def lockstep_refusal(cfg: RegConfig, dims=None) -> str | None:
+    """Why the lockstep batch driver does not run ``cfg`` on images of
+    ``dims`` (``None``: any size), or None where it does. It runs
+    diffusion, curvature, elastic and fluid; fluid with the red-black SOR
+    sweep (B7's pair axis) and only where no level's larger extent exceeds
+    ``_DERIV_BARRIER_MIN_EXTENT``: past it a level takes the two-pass
+    step (B8 + B9), which has no pair axis. Demons have no lockstep
+    driver (ROADMAP A15 part 2)."""
+    if cfg.method not in _LOCKSTEP:
+        return (f"the lockstep batch driver runs diffusion, curvature, elastic and fluid, not "
+                f"{cfg.method.name}: its demons driver is ROADMAP A15 part 2")
+    if cfg.method != Method.FLUID:
+        return None
+    if cfg.navier_lame_solver != "sor" or cfg.sor_ordering != "redblack":
+        return (f"the lockstep fluid driver runs the red-black SOR sweep (B7's pair axis), not "
+                f"navier_lame_solver={cfg.navier_lame_solver!r} with "
+                f"sor_ordering={cfg.sor_ordering!r}")
+    if dims is not None and max(dims) > _DERIV_BARRIER_MIN_EXTENT:
+        return (f"the lockstep fluid driver runs levels up to {_DERIV_BARRIER_MIN_EXTENT} a "
+                f"side, not {tuple(dims)}: past it a level takes the two-pass step (B8 + B9), "
+                f"which has no pair axis")
+    return None
+
+
 def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
     """``_register_impl`` over a stack of pairs in lockstep, the counterpart
     of the JAX package's ``jax.vmap(_register_impl)``: ``irefs``, ``imovs
     [B, nx, ny]``, ``initial_motions [B, 2, nx, ny]`` or None. The levels
     and refinements advance together; within a refinement each pair stops
-    on its own in the level loop ``register`` runs on a stack of one
-    (``_solve_level_blocked``), so every pair's result equals its own
-    ``register``'s bit for bit. Diffusion, curvature and elastic only."""
-    if cfg.method not in (Method.DIFFUSION, Method.CURVATURE, Method.ELASTIC):
-        raise NotImplementedError(
-            f"the lockstep batch driver runs diffusion, curvature and elastic, not "
-            f"{cfg.method.name}: its fluid and demons drivers are ROADMAP A15 part 2")
+    on its own, in the level loop ``register`` runs on a stack of one
+    (``_solve_level_blocked``) or, for fluid, in the lockstep fluid loop
+    (``_solve_level_fluid_batch``: one host read an iteration for all the
+    pairs still iterating), so every pair's result equals its own
+    ``register``'s bit for bit. Diffusion, curvature, elastic and fluid;
+    fluid with the red-black SOR sweep up to an extent of
+    ``_DERIV_BARRIER_MIN_EXTENT``, past which ``register_batch`` maps
+    (``lockstep_refusal``)."""
+    why = lockstep_refusal(cfg, tuple(irefs.shape[1:]))
+    if why is not None:
+        raise NotImplementedError(why)
     b = irefs.shape[0]
     dims = pyramid_dims(tuple(irefs.shape[1:]), cfg.nscales)
     if min(dims[-1]) < 4:
@@ -597,8 +807,12 @@ def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
                 u_s = _each(downsample_motion, u_full, dims[s])
         else:
             u_s = u_full
-        u_s, level_traces = _solve_level_variational(
-            u_s, pyr_ref[s], pyr_mov[s], cfg, int(cfg.niter[s]), s, batch=True)
+        if cfg.method == Method.FLUID:
+            u_s, level_traces = _solve_level_fluid_batch(u_s, pyr_ref[s], pyr_mov[s], cfg,
+                                                         int(cfg.niter[s]), s)
+        else:
+            u_s, level_traces = _solve_level_variational(
+                u_s, pyr_ref[s], pyr_mov[s], cfg, int(cfg.niter[s]), s, batch=True)
         traces.extend(level_traces)
         if s == cfg.nscales:
             coarse_final = u_s

@@ -14,7 +14,8 @@ LAUNCHES = {"diffusion_block": 0, "diffusion_step": 0, "warp2d": 0, "compose": 0
             "compose_strip": 0, "demons_onepass_strip": 0, "demons_correspondence_strip": 0,
             "compose_smooth_strip": 0, "diffusion_block_batch": 0, "diffusion_step_batch": 0,
             "warp2d_batch": 0, "compose_batch": 0, "logger_norms_batch": 0,
-            "upsample_motion": 0, "derive": 0, "downsample": 0}
+            "upsample_motion": 0, "derive": 0, "downsample": 0, "fluid_iter_batch": 0,
+            "fluid_metrics_batch": 0, "derive_batch": 0}
 
 
 def reset_launches() -> None:

@@ -68,6 +68,7 @@ _SIGNATURES = {
                                           _F, _P), _I),
     "of2d_compose_smooth_strip": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _FA, _P), _I),
     "of2d_fluid_metrics": ((_P, _P, _P, _P, _I, _I, _P), _I),
+    "of2d_fluid_metrics_batch": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "of2d_sor_nblocks": ((_I, _I), _I),
     "of2d_elastic_block_smem_bytes": ((_I,), _I),
     "of2d_elastic_nblocks": ((_I, _I, _I), _I),
@@ -76,12 +77,15 @@ _SIGNATURES = {
                                   _I, _P), _I),
     "of2d_fluid_iter_smem_bytes": ((), _I),
     "of2d_fluid_iter": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P), _I),
+    "of2d_fluid_iter_batch": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
+                               _I, _P), _I),
     "of2d_fluid_iter_strip": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                                _I, _I, _P), _I),
     "of2d_fluid_sweep_max": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P), _I),
     "of2d_fluid_euler": ((_P, _P, _P, _P, _I, _I, _P), _I),
     "of2d_upsample_motion": ((_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P), _I),
     "of2d_derive": ((_P, _P, _P, _I, _I, _P), _I),
+    "of2d_derive_batch": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
     "of2d_downsample": ((_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
                         _I),
 }
@@ -205,6 +209,8 @@ class Pairs:
             raise ValueError(f"pairs must be distinct indices in [0, {batch}), got {list(idx)}")
         self.idx = idx
         self.batch = batch
+        # Every pair of the batch, in stack order.
+        self.whole = idx == tuple(range(batch))
         self._on = {}
 
     def __len__(self) -> int:
@@ -213,10 +219,19 @@ class Pairs:
     def __iter__(self):
         return iter(self.idx)
 
-    def on(self, device: torch.device) -> torch.Tensor:
-        t = self._on.get(device)
+    def part(self, start: int, stop: int) -> "Pairs":
+        """The pairs ``start:stop`` of the list, with views of the device
+        copies made so far: no upload."""
+        part = Pairs(self.idx[start:stop], self.batch)
+        part._on = {key: t[start:stop] for key, t in self._on.items()}
+        return part
+
+    def on(self, device: torch.device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+        """The list on ``device``: ``int32`` for a kernel, ``int64`` for an
+        index op (``index_select``, ``index_copy_``)."""
+        t = self._on.get((device, dtype))
         if t is None:
-            t = self._on[device] = torch.tensor(self.idx, dtype=torch.int32, device=device)
+            t = self._on[(device, dtype)] = torch.tensor(self.idx, dtype=dtype, device=device)
         return t
 
 

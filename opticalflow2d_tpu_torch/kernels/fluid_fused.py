@@ -16,6 +16,11 @@ The two-pass iteration of large grids never stores R
 and ``fluid_euler`` (CUDA ``csrc/fluid_euler.cu``) recomputes R from u and
 vel', bit for bit, and applies the gated Euler step.
 
+``fluid_iter_batch`` is ``fluid_iter`` on the listed pairs of a stack in
+one launch (the lockstep fluid driver, ``engine.registration``): each
+pair's vel' at its place in the stack, its R and ``max |R|^2`` in list
+order.
+
 ``fluid_iter_strip`` is ``fluid_iter`` on one strip of the strip-parallel
 driver (``parallel.spatial``), pre-padded with ``FLUID_PAD`` halo rows a
 side: the colours, the interior and R's one-sided borders are the image's,
@@ -127,6 +132,70 @@ def fluid_iter(u: torch.Tensor, vel: torch.Tensor, g: torch.Tensor, mu: float, l
         *sor_scalars(mu, lam, omega), int(reference_stencil), int(maxabs_bug),
     )
     kernels.LAUNCHES["fluid_iter"] += 1
+    return vel_out, r, maxsq
+
+
+def fluid_iter_batch_ref(u: torch.Tensor, vel: torch.Tensor, g: torch.Tensor, mu: float,
+                         lam: float, omega: float, reference_stencil: bool = True,
+                         maxabs_bug: bool = False, pairs=None,
+                         vel_out: torch.Tensor | None = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the batched kernel: ``fluid_iter_ref`` on
+    each listed pair, its vel' into ``vel_out[p]``; R ``[n_pairs, 2, nx,
+    ny]`` and maxsq ``[n_pairs]`` in list order."""
+    pairs = _build.as_pairs(pairs, u.shape[0])
+    vel_out = torch.zeros_like(vel) if vel_out is None else vel_out
+    rs, maxsqs = [], []
+    for p in pairs:
+        vel_out[p], r, maxsq = fluid_iter_ref(u[p], vel[p], g[p], mu, lam, omega,
+                                              reference_stencil, maxabs_bug)
+        rs.append(r)
+        maxsqs.append(maxsq)
+    return vel_out, torch.stack(rs), torch.stack(maxsqs)
+
+
+def fluid_iter_batch(u: torch.Tensor, vel: torch.Tensor, g: torch.Tensor, mu: float,
+                     lam: float, omega: float, reference_stencil: bool = True,
+                     maxabs_bug: bool = False, pairs=None, vel_out: torch.Tensor | None = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``fluid_iter`` on the listed pairs of a stack in one launch: ``u,
+    vel [B, 2, nx, ny]``, ``g [B, 3, nx, ny]``, ``pairs`` distinct indices
+    in ``[0, B)`` (or ``_build.Pairs``). Writes pair ``p``'s vel' into
+    ``vel_out[p]`` and leaves the other pairs of ``vel_out`` as they are
+    (zeros when it is None); returns ``(vel_out, R [n_pairs, 2, nx, ny],
+    maxsq [n_pairs])``, R and maxsq in the order of ``pairs``. Each pair's
+    vel', R and maxsq equal its own ``fluid_iter`` call's. The plain
+    version on the CPU, the kernel on CUDA."""
+    if _build.on_cpu(u, vel, g, *(() if vel_out is None else (vel_out,))):
+        return fluid_iter_batch_ref(u, vel, g, mu, lam, omega, reference_stencil, maxabs_bug,
+                                    pairs, vel_out)
+    if u.device.type != "cuda":
+        raise ValueError(f"no fluid kernel for device {u.device}")
+    if u.dim() != 4 or u.shape[1] != 2:
+        raise ValueError(f"u must be [B, 2, nx, ny], got {tuple(u.shape)}")
+    b, _, nx, ny = u.shape
+    _build.check_cuda("u", u, (b, 2, nx, ny), u.device)
+    _build.check_cuda("vel", vel, (b, 2, nx, ny), u.device)
+    _build.check_cuda("g", g, (b, 3, nx, ny), u.device)
+    if min(nx, ny) < 2:
+        raise ValueError(f"the fluid kernels need nx, ny >= 2, got {(nx, ny)}")
+    pairs = _build.as_pairs(pairs, b)
+    if vel_out is None:
+        vel_out = torch.zeros_like(vel)
+    _build.check_out(vel_out, vel, u, vel, g)
+    lib = _build.load()
+    _build.check_smem(lib.of2d_fluid_iter_smem_bytes(), u.device, "the fluid iteration")
+    n = len(pairs)
+    r = torch.empty((n, 2, nx, ny), dtype=u.dtype, device=u.device)
+    partials = torch.empty((n, lib.of2d_sor_nblocks(nx, ny)), dtype=u.dtype, device=u.device)
+    maxsq = torch.empty(n, dtype=u.dtype, device=u.device)
+    _build.launch(
+        "of2d_fluid_iter_batch", u.device, u.data_ptr(), vel.data_ptr(), g.data_ptr(),
+        vel_out.data_ptr(), r.data_ptr(), partials.data_ptr(), maxsq.data_ptr(),
+        pairs.on(u.device).data_ptr(), n, nx, ny, *sor_scalars(mu, lam, omega),
+        int(reference_stencil), int(maxabs_bug),
+    )
+    kernels.LAUNCHES["fluid_iter_batch"] += 1
     return vel_out, r, maxsq
 
 

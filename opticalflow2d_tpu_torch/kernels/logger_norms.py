@@ -9,7 +9,8 @@ The relative error of a step is ``(sums[0] / N) / (sums[1] / N)``
 order, with no float atomics, so a run's stop repeats exactly; it takes any
 grid, not only row counts that are multiples of 8. ``logger_norms_batch``
 takes the listed pairs of two stacks in one launch (the level loop's
-passes of one iteration).
+passes of one iteration), and ``fluid_metrics_batch`` the fluid metrics
+of the listed pairs (the lockstep fluid driver's one read an iteration).
 """
 
 from __future__ import annotations
@@ -111,4 +112,40 @@ def fluid_metrics(u_new: torch.Tensor, u_prev: torch.Tensor) -> torch.Tensor:
     _build.launch("of2d_fluid_metrics", u_prev.device, u_new.data_ptr(), u_prev.data_ptr(),
                   partials.data_ptr(), out.data_ptr(), nx, ny)
     kernels.LAUNCHES["fluid_metrics"] += 1
+    return out
+
+
+def fluid_metrics_batch_ref(u_new: torch.Tensor, u_prev: torch.Tensor, pairs) -> torch.Tensor:
+    """Plain PyTorch version of the batched fluid metrics:
+    ``fluid_metrics_ref`` of each listed pair, ``[n_pairs, 3]``."""
+    pairs = _build.as_pairs(pairs, u_prev.shape[0])
+    return torch.stack([fluid_metrics_ref(u_new[p], u_prev[p]) for p in pairs])
+
+
+def fluid_metrics_batch(u_new: torch.Tensor, u_prev: torch.Tensor, pairs) -> torch.Tensor:
+    """The fluid metrics of the listed pairs of two ``[B, 2, nx, ny]``
+    stacks in one launch: ``[n_pairs, 3]`` rows ``[dsum, psum, jac_min]``
+    in the order of ``pairs`` (distinct indices in ``[0, B)``), each equal
+    to its own ``fluid_metrics`` call's. The plain version on the CPU, the
+    kernel on CUDA."""
+    if _build.on_cpu(u_new, u_prev):
+        return fluid_metrics_batch_ref(u_new, u_prev, pairs)
+    if u_prev.device.type != "cuda":
+        raise ValueError(f"no fluid metrics for device {u_prev.device}")
+    if u_prev.dim() != 4 or u_prev.shape[1] != 2:
+        raise ValueError(f"u_prev must be [B, 2, nx, ny], got {tuple(u_prev.shape)}")
+    b, _, nx, ny = u_prev.shape
+    _build.check_cuda("u_prev", u_prev, (b, 2, nx, ny), u_prev.device)
+    _build.check_cuda("u_new", u_new, (b, 2, nx, ny), u_prev.device)
+    if min(nx, ny) < 2:
+        raise ValueError(f"the fluid metrics need nx, ny >= 2, got {(nx, ny)}")
+    pairs = _build.as_pairs(pairs, b)
+    n = len(pairs)
+    partials = torch.empty(3 * n * _build.load().of2d_logger_norms_nblocks(nx, ny),
+                           dtype=u_prev.dtype, device=u_prev.device)
+    out = torch.empty((n, 3), dtype=u_prev.dtype, device=u_prev.device)
+    _build.launch("of2d_fluid_metrics_batch", u_prev.device, u_new.data_ptr(),
+                  u_prev.data_ptr(), partials.data_ptr(), out.data_ptr(),
+                  pairs.on(u_prev.device).data_ptr(), n, nx, ny)
+    kernels.LAUNCHES["fluid_metrics_batch"] += 1
     return out

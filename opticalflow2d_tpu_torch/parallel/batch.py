@@ -5,22 +5,27 @@ Two ways to run a batch, as in the JAX package:
 
 - ``impl="vmap"``: the lockstep driver (``engine.registration.
   _register_batch_impl``, the counterpart of ``jax.vmap(_register_impl)``).
-  Its level loop is the one ``register`` runs on a stack of one pair
-  (``_solve_level_blocked``: the derivatives' kernel U2, the one-block
-  lookahead): every level launches its kernels once for all the pairs
-  still iterating and reads all their Logger sums in one host read a
-  block; each pair keeps its own stop and count, and leaves the launches
-  once it stops. Diffusion, curvature and elastic. Where JAX's vmap
-  executes both branches of every ``lax.cond`` under a mask, a stopped
-  pair here costs nothing.
+  Its level loop for diffusion, curvature and elastic is the one
+  ``register`` runs on a stack of one pair (``_solve_level_blocked``: the
+  derivatives' kernel U2, the one-block lookahead): every level launches
+  its kernels once for all the pairs still iterating and reads all their
+  Logger sums in one host read a block. Fluid has its own lockstep loop
+  (``_solve_level_fluid_batch``): B7 and B5 once an iteration for all the
+  pairs still iterating, one host read an iteration of their metrics, and
+  the pairs that regrid at an iteration regridded together. Each pair
+  keeps its own stop, counts and regrids, and leaves the launches once it
+  stops. Where JAX's vmap executes both branches of every ``lax.cond``
+  under a mask, a stopped pair here costs nothing.
 - ``impl="map"``: each pair through the single-pair ``_register_impl`` in
   turn, as ``lax.map`` does; every family.
 
-Fluid and demons take map: their loops read the device once an iteration
-per pair and branch on it (regrids, the exp map's squarings), and JAX's own
-docstring calls vmap counterproductive for them; their lockstep drivers are
-ROADMAP A15 part 2. Either way every pair's result equals its own
-``register``'s, bit for bit.
+Demons take map: their loops branch on a host read an iteration (the exp
+map's squarings), and their lockstep driver is ROADMAP A15 part 2. So does
+a fluid configuration the lockstep fluid loop does not run
+(``lockstep_refusal``: another solver than the red-black SOR sweep, or a
+level past an extent of 8192, whose two-pass step has no pair axis).
+Either way every pair's result equals its own ``register``'s, bit for
+bit.
 
 A mesh's ``"data"`` axis splits the batch into one contiguous slice a row,
 registered on the row's first device (``Mesh.data_devices``); one process
@@ -33,32 +38,38 @@ from typing import List, Optional
 
 import torch
 
-from opticalflow2d_tpu_torch.config import Method, RegConfig
+from opticalflow2d_tpu_torch.config import RegConfig
 from opticalflow2d_tpu_torch.engine.registration import (
     LevelTrace,
     RegistrationResult,
     _register_batch_impl,
     _register_impl,
+    lockstep_refusal,
     resolve_device,
 )
 from opticalflow2d_tpu_torch.parallel.mesh import Mesh
 from opticalflow2d_tpu_torch.utils.profiling import entry
 
-# Methods whose inner loops branch on a host read an iteration (regrids,
-# the exp map), which the JAX package's vmap forces to execute both ways.
-_COND_HEAVY = (Method.THIRIONS_DEMONS, Method.DIFFEOMORPHIC_DEMONS, Method.FLUID)
 _IMPLS = ("vmap", "map")
 
 
-def _resolve_impl(cfg: RegConfig, impl: str) -> str:
-    """Resolve ``impl="auto"``: map for fluid and demons, vmap for the
-    variational families. This is the JAX package's rule for a config with
-    ``warp_halo > 0`` and no Pallas: the port has neither knob (its gather
-    is exact and its kernels run under the lockstep driver), so only the
-    method decides."""
+def _resolve_impl(cfg: RegConfig, impl: str, dims=None) -> str:
+    """Resolve ``impl="auto"`` for images of ``dims`` (``None``: any size):
+    vmap where the lockstep driver runs the configuration
+    (``lockstep_refusal``: diffusion, curvature, elastic, and fluid with
+    the red-black SOR sweep up to an extent of 8192), map otherwise
+    (demons, other fluid configurations). This departs from the JAX
+    package's rule, which maps fluid and demons for a config with
+    ``warp_halo > 0`` and no Pallas because its vmap runs every
+    ``lax.cond``'s both branches and every pair to the slowest one's stop:
+    here a stopped pair leaves the launches and a regrid runs only for the
+    pairs that take it, so fluid loses nothing in lockstep and saves a
+    host read an iteration per pair. The port has neither of JAX's knobs
+    (its gather is exact and its kernels run under the lockstep driver),
+    so the configuration alone decides."""
     if impl != "auto":
         return impl
-    return "map" if cfg.method in _COND_HEAVY else "vmap"
+    return "map" if lockstep_refusal(cfg, dims) is not None else "vmap"
 
 
 def _map_local(irefs, imovs, cfg: RegConfig, u0s=None) -> RegistrationResult:
@@ -114,8 +125,10 @@ def register_batch(irefs, imovs, cfg: RegConfig, mesh: Optional[Mesh] = None,
         must be divisible by their number), each row's pairs run on the
         row's first device.
       impl: ``"vmap"`` (the lockstep driver: diffusion, curvature,
-        elastic), ``"map"`` (each pair in turn; every family) or
-        ``"auto"`` (``_resolve_impl``: map for fluid and demons).
+        elastic, and fluid with the red-black SOR sweep up to an extent
+        of 8192), ``"map"`` (each pair in turn; every family) or
+        ``"auto"`` (``_resolve_impl``: vmap where the lockstep driver
+        runs, map for demons and other fluid configurations).
       initial_motions: optional ``[B, 2, nx, ny]`` warm-start fields (for
         example the previous frames' solutions of a sequence).
       device: where the batch runs without a mesh; ``None`` means CUDA
@@ -147,13 +160,13 @@ def _register_batch(irefs, imovs, cfg: RegConfig, mesh: Optional[Mesh], impl: st
     b = irefs.shape[0]
     if b % len(devices) != 0:
         raise ValueError(f"batch {b} not divisible by data-axis size {len(devices)}")
-    impl = _resolve_impl(cfg, impl)
+    dims = tuple(irefs.shape[1:])
+    impl = _resolve_impl(cfg, impl, dims)
     if impl not in _IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
-    if impl == "vmap" and cfg.method in _COND_HEAVY:
-        raise NotImplementedError(
-            f"impl='vmap' runs diffusion, curvature and elastic; the lockstep driver of "
-            f"{cfg.method.name} is ROADMAP A15 part 2 (impl='map' or 'auto' runs it)")
+    why = lockstep_refusal(cfg, dims) if impl == "vmap" else None
+    if why is not None:
+        raise NotImplementedError(f"impl='vmap': {why} (impl='map' or 'auto' runs it)")
     u0s = None
     if initial_motions is not None:
         u0s = torch.as_tensor(initial_motions, dtype=dtype)

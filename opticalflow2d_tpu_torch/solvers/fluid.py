@@ -21,6 +21,10 @@ tail stays on the device as plain tensor ops on 0-d tensors, so a step
 makes no host read. ``maxabs_bug=True`` reproduces the reference's
 ``Motion::maxabs`` defect, which changes the timestep sequence.
 
+``make_fluid_batch_step`` is the step on the listed pairs of a stack (B7's
+pair axis, red-black), the Euler tail on each pair's own timestep: the
+lockstep driver's step, each pair's bits those of ``make_fluid_step``.
+
 ``make_fluid_two_pass_step`` is the same step in two passes that never
 store R (red-black only): the sweep with ``max |R|^2``, the timestep gate
 on device scalars, then the Euler pass, which recomputes R. It gives the
@@ -34,9 +38,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from opticalflow2d_tpu_torch.kernels._build import Pairs
 from opticalflow2d_tpu_torch.kernels.fluid_fused import (
     fluid_euler,
     fluid_iter,
+    fluid_iter_batch,
     fluid_iter_ref,
     fluid_sweep_max,
     material_derivative,
@@ -79,6 +85,48 @@ def make_fluid_step(mu: float, lam: float, omega: float, dumax: float = 0.65,
         do_step = dt < skip32
         u = torch.where(do_step, u + r * torch.where(do_step, dt, 0.0), u)
         return u, velocity
+
+    return step
+
+
+def make_fluid_batch_step(mu: float, lam: float, omega: float, dumax: float = 0.65,
+                          timestep_skip: float = 65.0, maxabs_bug: bool = False,
+                          reference_stencil: bool = True):
+    """Build the red-black fluid step on the listed pairs of a stack,
+    ``(u, velocity, g, pairs, vel_out, u_out, scratch) -> None``: ``u``,
+    ``velocity [B, 2, nx, ny]``, ``g [B, 3, nx, ny]``, ``pairs`` a ``Pairs``
+    of the stack, ``scratch [C, 2, nx, ny]``. It writes each listed pair's
+    velocity into ``vel_out[p]`` and its new motion into ``u_out[p]`` and
+    leaves the other pairs as they are. One launch of B7 for all the pairs
+    (``fluid_iter_batch``), then ``make_fluid_step``'s tail on the ``[n, 1,
+    1, 1]`` timesteps, so each pair's motion and velocity equal its own
+    step's bit for bit. The tail runs in place on B7's R, which it takes in
+    list order; where the list is not the whole stack, on the listed pairs'
+    motion gathered to match, ``C`` pairs at a time through ``scratch``."""
+    dumax32 = float(np.float32(dumax))
+    skip32 = float(np.float32(timestep_skip))
+
+    def step(u: torch.Tensor, velocity: torch.Tensor, g: torch.Tensor, pairs: Pairs,
+             vel_out: torch.Tensor, u_out: torch.Tensor, scratch: torch.Tensor) -> None:
+        _, r, maxsq = fluid_iter_batch(u, velocity, g, mu, lam, omega, reference_stencil,
+                                       maxabs_bug, pairs, vel_out)
+        dt = _timestep(maxsq, dumax32)[:, None, None, None]
+        do_step = dt < skip32
+        # u + R dt, as u + r * where(do_step, dt, 0) rounds it (an add
+        # commutes exactly), then the gate; each pair's R is scratch.
+        r.mul_(torch.where(do_step, dt, 0.0))
+        if pairs.whole:
+            r.add_(u)
+            torch.where(do_step, r, u, out=u_out)
+            return
+        idx = pairs.on(u.device, torch.int64)
+        for z in range(0, len(idx), scratch.shape[0]):
+            i = idx[z:z + scratch.shape[0]]
+            mine = torch.index_select(u, 0, i, out=scratch[:len(i)])
+            rz = r[z:z + len(i)]
+            rz.add_(mine)
+            torch.where(do_step[z:z + len(i)], rz, mine, out=rz)
+            u_out.index_copy_(0, i, rz)
 
     return step
 

@@ -11,11 +11,11 @@ host read of a block, a pyramid build. A span is recorded only while a
 A record holds the span's name, its start and end on ``time.time_ns()``
 (the clock of the profiler's own events), the index of the span it opened
 inside, the request it belongs to, and a few attributes (``scale``,
-``refine``, ``nx``, ``ny``, ``site``). Records stay in memory, at most
-``MAX_RECORDS``; ``records()`` returns them in seconds, ``clear()`` drops
-them, ``trace()`` clears them when it starts and writes them beside the
-profiler's events. A Python garbage collection that runs while the
-recorder is on is recorded as a ``gc`` span.
+``refine``, ``nx``, ``ny``, ``site``, ``pairs``). Records stay in memory,
+at most ``MAX_RECORDS``; ``records()`` returns them in seconds,
+``clear()`` drops them, ``trace()`` clears them when it starts and writes
+them beside the profiler's events. A Python garbage collection that runs
+while the recorder is on is recorded as a ``gc`` span.
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ class _Span:
         return False
 
 
-_ATTRS = ("scale", "refine", "nx", "ny", "site")
+_ATTRS = ("scale", "refine", "nx", "ny", "site", "pairs")
 
 
 class SpanRecorder:
@@ -106,14 +106,14 @@ class SpanRecorder:
         return attrs
 
     def span(self, name: str, *, request=None, scale=None, refine=None, nx=None, ny=None,
-             site=None):
+             site=None, pairs=None):
         """A context manager that records ``name`` while a profiler runs.
         ``request`` defaults to the parent span's (a new one at top level);
         the other keywords are kept as attributes when given."""
         if not _profiler_enabled():
             return NULL_SPAN
-        key = (scale, refine, nx, ny, site)
-        return self._open(name, request, None if key == (None,) * 5 else
+        key = (scale, refine, nx, ny, site, pairs)
+        return self._open(name, request, None if key == (None,) * 6 else
                           self._attrs(key, _ATTRS))
 
     def entry(self, name: str, request=None):

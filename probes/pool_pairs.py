@@ -1,6 +1,7 @@
 """What each pair of a cell's pool costs: its latency and its solves, pair by
 pair, for several seeds (``slide_fluid_16384.pair`` unless ``--workload``
-names another cell of one pair a request).
+names another cell); for a cell of many pairs a request, what each request
+of the pool costs and the work it holds.
 
     python3 probes/pool_pairs.py --seeds N [N ...] --out FILE [--workload NAME] [--reps 2]
 
@@ -15,10 +16,22 @@ coarse to fine. It prints each seed's slowest pair and a least-squares fit
 of latency on the regrids of each level over the pairs that ran every
 iteration, beside the card's name and power limit.
 
-Needs one CUDA card; about 15 s a seed at 16384^2.
+For a cell of many pairs a request (``dirlab_fluid.volume``), a line a
+request holds, per scale coarse to fine, the host reads (the largest
+iteration count of its pairs), the pair-iterations, the regrids and the
+pairs that ran to the niter cap by phase (pairs ``k`` of ``slices`` a
+phase, phase-major). It prints each seed's rate (pairs over the mean
+latency of its pool) beside the mean work of its pool, and a least-squares
+fit of latency on the reads and on the pair-iterations and regrids
+weighted by each level's megapixels: how much of the seeds' spread the
+work explains.
+
+Needs one CUDA card; about 15 s a seed at 16384^2, 30 s a seed for the
+4DCT cell.
 """
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -49,6 +62,76 @@ def fit(rows: list) -> dict:
             "residual_s": float(np.std(y - x @ coef))}
 
 
+def request_work(solves: list, traffic: dict, config: dict, niter) -> dict:
+    """A request's work per scale, from ``solves`` (``(scale, iterations,
+    regrids)`` pair by pair, each pair's coarse to fine); ``niter[scale]``
+    the cap."""
+    from opticalflow2d_tpu_torch.ops.resample import pyramid_dims
+
+    s = config["settings"]
+    dims = pyramid_dims(tuple(config["dims"]), s["nscales"])
+    slices = config["data"].get("slices", traffic["pairs_per_request"])
+    by_scale = {}
+    for k, scale_its_regrids in enumerate(_by_pair(solves, traffic["pairs_per_request"])):
+        for scale, its, regrids in scale_its_regrids:
+            w = by_scale.setdefault(int(scale), {"reads": 0, "pair_iterations": 0, "regrids": 0,
+                                                 "at_cap_by_phase": {}})
+            w["reads"] = max(w["reads"], its)
+            w["pair_iterations"] += its
+            w["regrids"] += regrids
+            if its == int(niter[int(scale)]):
+                phase = str(k // slices)
+                w["at_cap_by_phase"][phase] = w["at_cap_by_phase"].get(phase, 0) + 1
+    mpx = {sc: dims[sc][0] * dims[sc][1] / 1e6 for sc in by_scale}
+    return {"by_scale": by_scale,
+            "reads": sum(w["reads"] for w in by_scale.values()),
+            "mpx_iterations": sum(w["pair_iterations"] * mpx[sc] for sc, w in by_scale.items()),
+            "mpx_regrids": sum(w["regrids"] * mpx[sc] for sc, w in by_scale.items())}
+
+
+def _by_pair(solves: list, pairs: int) -> list:
+    """``solves`` cut into each pair's list (the entry lists pair 0's
+    solves first)."""
+    each = len(solves) // pairs
+    return [solves[k * each:(k + 1) * each] for k in range(pairs)]
+
+
+def spread_of(values: list) -> float:
+    """The distance between the first and the third quartile over the
+    median."""
+    q1, q2, q3 = statistics.quantiles(values, n=4)
+    return (q3 - q1) / q2
+
+
+def fit_requests(rows: list, pairs: int) -> dict:
+    """Each seed's rate and mean work, and a least-squares fit of a
+    request's latency on a constant, its reads, and its megapixel
+    iterations and regrids, over every request."""
+    import numpy as np
+
+    seeds = sorted({r["seed"] for r in rows})
+    per_seed = {}
+    for seed in seeds:
+        mine = [r for r in rows if r["seed"] == seed]
+        per_seed[seed] = {
+            "pairs_per_s": pairs / float(np.mean([r["latency_s"] for r in mine])),
+            **{key: float(np.mean([r["work"][key] for r in mine]))
+               for key in ("reads", "mpx_iterations", "mpx_regrids")}}
+    x = np.array([[1.0, r["work"]["reads"], r["work"]["mpx_iterations"],
+                   r["work"]["mpx_regrids"]] for r in rows])
+    y = np.array([r["latency_s"] for r in rows])
+    coef, *_ = np.linalg.lstsq(x, y, rcond=None)
+    for seed in seeds:
+        mine = [i for i, r in enumerate(rows) if r["seed"] == seed]
+        per_seed[seed]["fit_pairs_per_s"] = pairs / float(np.mean(x[mine] @ coef))
+    spread = {key: spread_of([v[key] for v in per_seed.values()])
+              for key in ("pairs_per_s", "fit_pairs_per_s", "mpx_iterations", "reads")}
+    return {"per_seed": per_seed, "spread": spread,
+            "coef": {"base_s": float(coef[0]), "s_a_read": float(coef[1]),
+                     "s_a_mpx_iteration": float(coef[2]), "s_a_mpx_regrid": float(coef[3])},
+            "residual_s": float(np.std(y - x @ coef))}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seeds", type=int, nargs="+", required=True)
@@ -64,8 +147,7 @@ def main() -> int:
     from torch_bench.data import synth
 
     _, config, traffic = cells.find(cells.load_spec(), args.workload)
-    if traffic["pairs_per_request"] != 1:
-        raise SystemExit(f"{args.workload} serves {traffic['pairs_per_request']} pairs a request")
+    many = traffic["pairs_per_request"] > 1
     dev = torch.device("cuda", 0)
     torch.set_num_threads(1)
     client = cells.entry(traffic).Client(config, dev)
@@ -90,7 +172,11 @@ def main() -> int:
                     solves = client.request(*pair)[2]
                     torch.cuda.synchronize(dev)
                     row = {"seed": seed, "pair": p, "rep": rep, "peak_px": peaks[p],
-                           "latency_s": time.perf_counter() - a, "solves": solves}
+                           "latency_s": time.perf_counter() - a}
+                    if many:
+                        row["work"] = request_work(solves, traffic, config, client.config.niter)
+                    else:
+                        row["solves"] = solves
                     rows.append(row)
                     out.write(json.dumps(row) + "\n")
             del pool
@@ -99,8 +185,9 @@ def main() -> int:
     slowest = {}
     for r in rows:
         slowest[r["seed"]] = max(slowest.get(r["seed"], 0.0), r["latency_s"])
+    fitted = fit_requests(rows, traffic["pairs_per_request"]) if many else fit(rows)
     print(json.dumps({"workload": args.workload, "card": card(), "slowest_pair_s": slowest,
-                      "fit": fit(rows)}))
+                      "fit": fitted}))
     return 0
 
 

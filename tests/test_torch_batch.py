@@ -120,22 +120,24 @@ def test_result_holds_a_pair_axis_on_every_leaf(stacks):
 
 
 def test_fluid_auto_runs_map_and_matches_jax():
-    """Fluid resolves to map, held to JAX's map run op by op (as the fluid
-    tests hold ``register``): equal iteration and regrid counts."""
+    """Fluid resolves to the lockstep fluid driver, and it and map are held
+    to JAX's map run op by op (as the fluid tests hold ``register``):
+    equal iteration and regrid counts."""
     pairs = [make_pair(32, 28, shift=s) for s in SHIFTS]
     irefs, imovs = np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
     jcfg = J.RegConfig(method=J.Method.FLUID, niter=(10, 10), nscales=1, mu=0.25, lam=0.1,
                        omega=1.5, warp_halo=0, warp_halo_outer=0, warp_halo_auto=False)
     cfg = config_from_jax(jcfg)
-    assert _resolve_impl(cfg, "auto") == "map"
+    assert _resolve_impl(cfg, "auto", irefs.shape[1:]) == "vmap"
     with jax.disable_jit():
         want = jax_register_batch(irefs, imovs, jcfg, impl="map")
-    got = register_batch(irefs, imovs, cfg, device="cpu")
-    assert _counts(got) == _counts(want)
-    assert [t.regrids.tolist() for t in got.traces] == [
-        np.asarray(t.regrids).tolist() for t in want.traces]
-    assert any(t.regrids.any() for t in got.traces)
-    assert_close(got.motion, want.motion, MOTION_TOL)
+    for impl in ("auto", "map"):
+        got = register_batch(irefs, imovs, cfg, impl=impl, device="cpu")
+        assert _counts(got) == _counts(want)
+        assert [t.regrids.tolist() for t in got.traces] == [
+            np.asarray(t.regrids).tolist() for t in want.traces]
+        assert any(t.regrids.any() for t in got.traces)
+        assert_close(got.motion, want.motion, MOTION_TOL)
 
 
 @pytest.mark.parametrize("method,impl", [
@@ -144,8 +146,11 @@ def test_fluid_auto_runs_map_and_matches_jax():
     (T.Method.DIFFEOMORPHIC_DEMONS, "map"),
 ])
 def test_auto_resolves_by_method(method, impl):
+    """At 16384^2: fluid maps there, since its levels past 8192 take the
+    two-pass step, which has no pair axis (below it fluid runs in lockstep,
+    ``test_torch_fluid_batch.py``)."""
     cfg = T.RegConfig(method=method, niter=(5,))
-    assert _resolve_impl(cfg, "auto") == impl
+    assert _resolve_impl(cfg, "auto", (16384, 16384)) == impl
     assert _resolve_impl(cfg, "map") == "map" and _resolve_impl(cfg, "vmap") == "vmap"
 
 
@@ -213,8 +218,11 @@ def test_refuses_bad_arguments(stacks, case):
 @pytest.mark.parametrize("method", [T.Method.FLUID, T.Method.THIRIONS_DEMONS,
                                     T.Method.DIFFEOMORPHIC_DEMONS])
 def test_vmap_of_fluid_and_demons_is_not_ported(stacks, method):
-    cfg = T.RegConfig(method=method, niter=(5,))
-    with pytest.raises(NotImplementedError, match="A15 part 2"):
+    """Demons have no lockstep driver; fluid has one for the red-black SOR
+    sweep only, so the lexicographic one is refused."""
+    extra = dict(sor_ordering="lexicographic") if method == T.Method.FLUID else {}
+    cfg = T.RegConfig(method=method, niter=(5,), **extra)
+    with pytest.raises(NotImplementedError, match="impl='map' or 'auto' runs it"):
         register_batch(*stacks, cfg, impl="vmap", device="cpu")
 
 

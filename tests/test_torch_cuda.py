@@ -1101,3 +1101,85 @@ def test_register_batch_gpu_equals_register(cuda, method, extra):
     want = {Method.DIFFUSION: ["diffusion_block_batch"], Method.ELASTIC: ["elastic_block"],
             Method.CURVATURE: ["logger_norms_batch"]}[method]
     assert all(launches[name] > 0 for name in want), launches
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (33, 1000)])
+@pytest.mark.parametrize("pairs", [[0, 1, 2], [2, 0], [1]])
+def test_batched_fluid_kernels_equal_single_launches(cuda, shape, pairs):
+    """B7 and B5 by their pair axes, bit for bit: each listed pair's vel',
+    R and max |R|^2, and its three fluid metrics, equal its own single
+    launch and the plain version whatever its place in the list (R and the
+    numbers in list order); a pair left out of the list is not written."""
+    from opticalflow2d_tpu_torch.kernels.fluid_fused import fluid_iter_batch
+    from opticalflow2d_tpu_torch.kernels.logger_norms import fluid_metrics_batch
+    _, _, g, u = _batch_stack(shape, cuda)
+    vel = (torch.tanh(u.flip(1)) * 0.3).contiguous()
+    fill = torch.full_like(vel, float("nan"))
+    for ref_stencil, bug in ((True, False), (False, True)):
+        args = (u, vel, g, 0.25, 0.0, 0.66, ref_stencil, bug)
+        vel_out, r, maxsq = fluid_iter_batch(*args, pairs=pairs, vel_out=fill.clone())
+        for z, p in enumerate(pairs):
+            one = fluid_iter(u[p], vel[p], g[p], 0.25, 0.0, 0.66, ref_stencil, bug)
+            ref = fluid_iter_ref(u[p], vel[p], g[p], 0.25, 0.0, 0.66, ref_stencil, bug)
+            assert torch.equal(vel_out[p], one[0]) and torch.equal(r[z], one[1])
+            assert torch.equal(maxsq[z], one[2])
+            assert _max_abs(vel_out[p], ref[0]) == 0.0 and _max_abs(r[z], ref[1]) == 0.0
+            assert torch.equal(maxsq[z], ref[2])
+        for p in set(range(3)) - set(pairs):
+            assert bool(vel_out[p].isnan().all())
+    metrics = fluid_metrics_batch(vel, u, pairs)
+    for z, p in enumerate(pairs):
+        assert torch.equal(metrics[z], fluid_metrics(vel[p], u[p]))
+        want = fluid_metrics_ref(vel[p], u[p])
+        np.testing.assert_allclose(npy(metrics[z, :2]), npy(want[:2]), rtol=SUMS_RTOL)
+        assert torch.equal(metrics[z, 2], want[2])
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (100, 77), (33, 1000)])
+@pytest.mark.parametrize("pairs", [[0, 1, 2], [2, 0], [1]])
+def test_batched_derive_equals_single_launches(cuda, shape, pairs):
+    """U2 by its pair axis, bit for bit: pair ``p``'s ``g`` from
+    ``irefs[p]`` and the ``z``-th warped image equals its single launch
+    and the plain version; a pair left out of the list is not written."""
+    from opticalflow2d_tpu_torch.kernels.derive import derive_batch
+    irefs, imovs, _, _ = _batch_stack(shape, cuda)
+    warped = imovs[pairs].flip(-1).contiguous()
+    g = derive_batch(irefs, warped, pairs, torch.full((3, 3) + shape, float("nan"), device=cuda))
+    for z, p in enumerate(pairs):
+        assert torch.equal(g[p], derive(irefs[p], warped[z]))
+        assert torch.equal(g[p], derive_ref(irefs[p], warped[z]))
+    for p in set(range(3)) - set(pairs):
+        assert bool(g[p].isnan().all())
+
+
+def test_register_batch_fluid_gpu_equals_register(cuda):
+    """The lockstep fluid driver on the card against each pair's own
+    ``register`` there, bit for bit, with equal iteration and regrid
+    counts and Logger errors: B7 and B5 by their pair axes, one read an
+    iteration; and map likewise. The pairs regrid and stop apart."""
+    from opticalflow2d_tpu_torch.parallel import register_batch
+    irefs, imovs, _, _ = _batch_stack((96, 64), cuda, n=4)
+    imovs = torch.stack([torch.roll(imovs[i], (i, -i), (0, 1)) for i in range(4)])
+    cfg = RegConfig(method=Method.FLUID, niter=(25, 25), nscales=1, nrefine=2, mu=0.25,
+                    lam=0.0)
+    kernels.reset_launches()
+    vm = register_batch(irefs, imovs, cfg, impl="vmap")
+    launches = dict(kernels.LAUNCHES)
+    mp = register_batch(irefs, imovs, cfg, impl="map")
+    for i in range(4):
+        one = register(irefs[i], imovs[i], cfg)
+        for res in (vm, mp):
+            assert [int(t.iterations[i]) for t in res.traces] == [
+                t.iterations for t in one.traces]
+            assert [int(t.regrids[i]) for t in res.traces] == [t.regrids for t in one.traces]
+            assert all(torch.equal(a.errors[i], b.errors) for a, b in zip(res.traces, one.traces))
+            assert _max_abs(res.motion[i], one.motion) == 0.0
+    assert launches["fluid_iter_batch"] > 0 and launches["fluid_metrics_batch"] > 0, launches
+    assert launches["derive_batch"] > 0, launches
+    assert launches["fluid_iter"] == 0 and launches["fluid_metrics"] == 0, launches
+    assert launches["derive"] == 0, launches
+    # The pyramid's level and the upsample: a launch a pair.
+    assert launches["downsample"] == 8 and launches["upsample_motion"] == 4, launches
+    assert launches["fluid_metrics_batch"] == sum(int(t.iterations.max()) for t in vm.traces)
+    assert sum(int(t.regrids.sum()) for t in vm.traces) > 0
+    assert len({tuple(int(t.iterations[i]) for t in vm.traces) for i in range(4)}) > 1

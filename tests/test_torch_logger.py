@@ -6,7 +6,7 @@ the iterations a block keeps."""
 import numpy as np
 import pytest
 
-from opticalflow2d_tpu_torch.engine.logger import block_stop, relative_errors
+from opticalflow2d_tpu_torch.engine.logger import block_stop, iteration_stops, relative_errors
 
 F32 = np.float32
 TOL = F32(1e-3)
@@ -76,3 +76,23 @@ def test_a_block_decides_as_its_iterations_one_at_a_time(seed):
         stop = (vec < TOL) & (its > 1) & (its < niter)
         want = (int(np.argmax(stop)) + 1, True) if stop.any() else (min(niter - it, k), False)
         assert block_stop(e, it, niter, TOL) == want
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_one_iteration_of_many_pairs_decides_as_each_pair_alone(seed):
+    """``iteration_stops`` (the lockstep fluid loop's read of hundreds of
+    pairs): each pair's error bit-equal to ``relative_errors``'s and its
+    stop ``block_stop``'s for a block of one, zeros and ``tol`` itself
+    among the magnitudes."""
+    rng = np.random.default_rng(seed)
+    d = (rng.random(300) * 2e-3).astype(F32) * (rng.random(300) > 0.2)
+    p = (rng.random(300) * 2).astype(F32) * (rng.random(300) > 0.2)
+    d[:3], p[:3] = TOL, F32(1.0)
+    for it in (0, 1, 2, 7):
+        errs, stops = iteration_stops(d, p, it, 8, TOL)
+        assert errs.dtype == F32
+        for k in range(300):
+            [one] = relative_errors([d[k]], [p[k]])
+            assert errs[k].tobytes() == F32(one).tobytes()
+            assert (1, bool(stops[k])) == block_stop([one], it, 8, TOL)
+        assert stops.any() == (it > 1)
