@@ -26,7 +26,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    33x1000, the fluid iteration with either
    stencil and either maxabs with a nonzero velocity, bit for bit, also on
    4x4 and 33x1000, and the fluid metrics on a field of up to 3 px whose
-   Jacobian determinant falls below 0.5. The two-pass fluid kernels with
+   Jacobian determinant falls below 0.5. The gated Euler update U4 on a
+   list of one pair (the one-pass step's route) on each fluid iteration's
+   R and max |R|^2, bit for bit against its plain version (the plain
+   tail), at the step's timestep skip and at a skip of 0, which keeps u.
+   The two-pass fluid kernels with
    either stencil and either maxabs: the sweep-and-max pass, bit for bit,
    whose vel' and max |R|^2 must also equal the fluid iteration's, and
    the Euler pass at a gate > 0 and a gate of 0. Then the fluid_16k
@@ -59,14 +63,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    Dirichlet system) and run again with the caller's TF32 switches on
    (cuBLAS and cuDNN), which must give the same bits and be restored; the
    fft route against the matmul route on the card. Then B1 (k = 8 and 3),
-   B2, B3 (warp and compose), B4, B5, B7 and U2 batched over 3 pairs of
+   B2, B3 (warp and compose), B4, B5, B7, U2 and U4 batched over 3 pairs of
    1000x777, of 1024^2 and of the 4DCT cell's 512^2 and 256^2, all listed
    and the shuffled subset (2, 0): each pair bit-equal to its own
    single-pair launch and to the plain version (B4's sums bit for bit
    against the single launch, within 1e-5 relative of the plain version;
    B5's three numbers and B7's max |R|^2 bit for bit against both; U2's
-   single launches also bit-equal to the plain version), and the pairs
-   left out of the subset unwritten by B7 and U2.
+   single launches also bit-equal to the plain version; U4 on B7's R and
+   max |R|^2 of the pairs, each against its list of one), and the pairs
+   left out of the subset unwritten by B7, U2 and U4.
 3. The main paths through the session API at 4096^2, each with the launch
    counts set to 0 just before it and read just after:
    a. diffusion on a pair of three blobs, 5 levels (SSD reduction >= 0.9,
@@ -155,8 +160,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    own changes under an ulp of one input pixel and a rounding of all.
 6. Times at 4096^2: median of 20 CUDA-event-timed runs of 10 calls each,
    of each kernel and of its plain version, and its bound; and of one
-   fluid iteration by each route (B7 and the plain Euler tail; B8, the
-   gate and B9); and of each strip kernel on one 1024x4096 strip of the
+   fluid iteration by each route (B7 and U4; B8, the gate and B9); and of
+   each strip kernel on one 1024x4096 strip of the
    4096^2 grid (K1-K4 padded with 8 rows, K5-K7 with their exact reach at
    halo 5), its bound counting the halo rows it reads. Then the demons
    kernels' tiles, the elastic block's plan at k = 4, the diffusion
@@ -174,7 +179,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    bound and its launches a call. And the box downsample from 4096^2 and
    from 16384^2 to each level, image and field, beside its plain version,
    its bound (the input read once, the output written once) and its
-   launches a call.
+   launches a call. And U4 on 640 pairs of 512^2 (the 4DCT cell's level),
+   all listed and 3 in 4 of them, and on one pair of 8192^2 (the one-pass
+   step's largest level), beside its plain version (the plain tail), its
+   bound (u and R read, u' written: 24 B a pixel) and its launches a call.
 7. Utilities: register_resumable on the 4096^2 blob diffusion run (3a),
    stopped after scale 2 and resumed, bit-equal to register with equal
    counts; utils.kernel_timer on B1 at 4096^2 beside phase 6's median;
@@ -218,7 +226,8 @@ from opticalflow2d_tpu_torch.kernels.downsample import (
 from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block, elastic_block_ref
 from opticalflow2d_tpu_torch.kernels.fluid_fused import (
     fluid_euler, fluid_euler_ref, fluid_iter, fluid_iter_batch, fluid_iter_batch_ref,
-    fluid_iter_ref, fluid_sweep_max, fluid_sweep_max_ref)
+    fluid_iter_ref, fluid_sweep_max, fluid_sweep_max_ref, fluid_update_batch,
+    fluid_update_batch_ref)
 from opticalflow2d_tpu_torch.kernels.logger_norms import (
     fluid_metrics, fluid_metrics_batch, fluid_metrics_batch_ref, fluid_metrics_ref,
     logger_norms, logger_norms_batch, logger_norms_batch_ref, logger_norms_ref)
@@ -231,6 +240,7 @@ from opticalflow2d_tpu_torch.kernels import elastic_block as k_el
 from opticalflow2d_tpu_torch.kernels import fluid_fused as k_fl
 from opticalflow2d_tpu_torch.kernels import warp_fused as k_wf
 from opticalflow2d_tpu_torch.metrics import ssd_reduction
+from opticalflow2d_tpu_torch.ops.reduce import motion_max_normsq
 from opticalflow2d_tpu_torch.ops.resample import pyramid_dims
 from opticalflow2d_tpu_torch.parallel import make_mesh, make_register_sp, register_batch, spatial
 from opticalflow2d_tpu_torch.parallel.batch import _resolve_impl
@@ -293,6 +303,7 @@ SP_FLUID_HALO = 32
 
 ELASTIC = (0.5, 0.0, 0.66)  # mu, lambda, omega of the elastic path and the kernel checks
 FLUID = (0.25, 0.0, 0.66)
+EULER = (0.65, 65.0)  # dumax, timestep_skip: RegConfig's defaults
 REGRID_FALLBACK = 0.95  # regrid threshold of the second fluid run, if the first has none
 
 # The spectral solvers (no kernel of their own: cuBLAS matmuls and cuFFT at
@@ -354,7 +365,7 @@ SPECTRAL_PATHS = (
 SPECTRAL_KERNELS = {"curvature": ("warp2d", "compose", "logger_norms_batch"),
                     "elastic_spectral": ("warp2d", "compose", "logger_norms_batch"),
                     "elastic_dirichlet": ("warp2d", "compose", "logger_norms_batch"),
-                    "fluid_spectral": ("warp2d", "compose", "fluid_metrics")}
+                    "fluid_spectral": ("warp2d", "compose", "fluid_metrics", "fluid_update")}
 NOT_ON_SPECTRAL = ("diffusion_block", "diffusion_block_batch", "diffusion_step",
                    "diffusion_step_batch", "elastic_block", "fluid_iter", "fluid_sweep_max",
                    "fluid_euler")
@@ -471,6 +482,9 @@ KERNELS = {
                         "opticalflow2d_tpu/pallas_kernels/fluid_fused.py:345"),
     "fluid_euler": ("cuda", "opticalflow2d_tpu_torch/csrc/fluid_euler.cu",
                     "opticalflow2d_tpu/pallas_kernels/fluid_fused.py:428"),
+    "fluid_update": ("cuda", "opticalflow2d_tpu_torch/csrc/fluid_euler.cu",
+                     "none: the JAX package's one-pass step updates in jnp "
+                     "(opticalflow2d_tpu/solvers/fluid.py:99-102)"),
     "diffusion_block_strip": ("cuda", "opticalflow2d_tpu_torch/csrc/diffusion_block.cu",
                               "opticalflow2d_tpu/pallas_kernels/diffusion_block.py:318"),
     "elastic_block_strip": ("cuda", "opticalflow2d_tpu_torch/csrc/elastic_block.cu",
@@ -530,8 +544,9 @@ KW = 5  # the demons kernelwidth of the main paths
 # Logger sums (12); B6 runs k = 4 of them. The fluid iteration adds the
 # material derivative and max |R|^2 (20) to the force and candidates, as
 # does the sweep-and-max pass, which writes no R; the Euler pass is the
-# material derivative and the gated update (20); the fluid metrics are the
-# Logger sums and the determinant with its minimum. The derivatives read two
+# material derivative and the gated update (20), and the update given R (U4)
+# a product and a sum; the fluid metrics are the Logger sums and the
+# determinant with its minimum. The derivatives read two
 # images and write three planes: two central differences and a difference.
 ELASTIC_K = 4
 # A strip kernel does its dense kernel's work on the strip's pixels and
@@ -558,12 +573,12 @@ STRIP_PADDED = {"diffusion_block_strip": 5, "elastic_block_strip": 5, "fluid_ite
 PLANES = {"diffusion_block": 7, "diffusion_step": 7, "warp2d": 4, "compose": 6,
           "logger_norms": 4, "demons_onepass": 6, "demons_correspondence": 6,
           "compose_smooth": 6, "elastic_block": 7, "fluid_iter": 11, "fluid_metrics": 4,
-          "fluid_sweep_max": 9, "fluid_euler": 6, "derive": 5}
+          "fluid_sweep_max": 9, "fluid_euler": 6, "derive": 5, "fluid_update": 6}
 OPS = {"diffusion_block": 8 * 33, "diffusion_step": 21, "warp2d": 25, "compose": 36,
        "logger_norms": 12, "demons_onepass": 93 + 16 * KW,
        "demons_correspondence": 45 + 8 * KW, "compose_smooth": 36 + 8 * KW,
        "elastic_block": ELASTIC_K * 50, "fluid_iter": 58, "fluid_metrics": 26,
-       "fluid_sweep_max": 58, "fluid_euler": 20, "derive": 5}
+       "fluid_sweep_max": 58, "fluid_euler": 20, "derive": 5, "fluid_update": 2}
 
 
 PLANES.update({name: PLANES[single] for name, single in BATCHED.items()})
@@ -818,11 +833,27 @@ def check_derive_batch(err: dict, shape, pairs, irefs, imovs) -> None:
             f"derive_batch {shape} pairs {pairs}: wrote a pair it was not given")
 
 
+def check_update_pairs(err: dict, shape, pairs, u, r, maxsq, **info) -> None:
+    """U4 by its pair axis on B7's R and max |R|^2 (list order), into a
+    NaN-filled stack: each listed pair's motion bit-equal to U4 on its list
+    of one and to the plain version (the plain tail), the others still NaN."""
+    one = _build.Pairs([0], 1)
+    out = fluid_update_batch(u, r, maxsq, pairs, *EULER, torch.full_like(u, float("nan")))
+    plain = fluid_update_batch_ref(u, r, maxsq, pairs, *EULER, torch.full_like(u, float("nan")))
+    singles = [fluid_update_batch(u[p][None], r[z][None], maxsq[z:z + 1], one, *EULER,
+                                  torch.empty_like(u[p])[None])[0] for z, p in enumerate(pairs)]
+    check_pairs(err, "fluid_update", shape, pairs, [out[p] for p in pairs], singles,
+                [plain[p] for p in pairs], **info)
+    left = [p for p in range(u.shape[0]) if p not in pairs]
+    require(all(bool(out[p].isnan().all()) for p in left),
+            f"fluid_update {shape} pairs {pairs}: wrote a pair it was not given")
+
+
 def check_fluid_batch(err: dict, shape, pairs, u, vel, g) -> None:
     """B7 and B5 batched on the listed pairs of a stack, into a NaN-filled
     velocity stack: each pair's vel', R and max |R|^2 and its three fluid
     metrics bit-equal to its single launch and to the plain version, and
-    every pair left out of the list still NaN (unwritten)."""
+    every pair left out of the list still NaN (unwritten); U4 on B7's R."""
     fill = torch.full_like(vel, float("nan"))
     for ref_stencil, bug in ((True, False), (False, True)):
         args = (u, vel, g, *FLUID, ref_stencil, bug)
@@ -841,6 +872,7 @@ def check_fluid_batch(err: dict, shape, pairs, u, vel, g) -> None:
         left = [p for p in range(u.shape[0]) if p not in pairs]
         require(all(bool(vel_out[p].isnan().all()) for p in left),
                 f"fluid_iter_batch {shape} pairs {pairs}: wrote a pair it was not given")
+        check_update_pairs(err, shape, pairs, u, r, maxsq, **info)
     metrics = fluid_metrics_batch(vel, u, pairs)
     single = [fluid_metrics(vel[p], u[p]) for p in pairs]
     plain = fluid_metrics_batch_ref(vel, u, pairs)
@@ -1166,9 +1198,23 @@ def fluid_velocity(u):
     return (torch.tanh(u.flip(1)) * 0.3).contiguous()
 
 
+def check_update(err: dict, u, r, maxsq, shape, **info) -> None:
+    """U4 on a list of one pair, as the one-pass step launches it, into a
+    NaN-filled field, bit for bit against its plain version (the plain
+    tail): at the step's timestep skip and at a skip of 0, where u is kept."""
+    one = _build.Pairs([0], 1)
+    for skip in (EULER[1], 0.0):
+        args = (u[None], r[None], maxsq.reshape(1), one, EULER[0], skip)
+        got = fluid_update_batch(*args, torch.full_like(u, float("nan"))[None])[0]
+        want = fluid_update_batch_ref(*args, torch.full_like(u, float("nan"))[None])[0]
+        check(err, "fluid_update", got, want, shape, exact=True, timestep_skip=skip, **info)
+        require(skip > 0 or torch.equal(got, u), f"fluid_update {shape}: a skip moved u")
+        del got, want
+
+
 def check_fluid(err: dict, small, vel, g) -> None:
     """B7 and B8 with either stencil and either maxabs, bit for bit; B8's
-    vel' and max |R|^2 also against B7's."""
+    vel' and max |R|^2 also against B7's; U4 on B7's R and max |R|^2."""
     shape = tuple(small.shape[1:])
     for ref_stencil in (True, False):
         for bug in (False, True):
@@ -1179,6 +1225,7 @@ def check_fluid(err: dict, small, vel, g) -> None:
             check(err, "fluid_iter", v, v_ref, shape, exact=True, out="vel", **info)
             check(err, "fluid_iter", r, r_ref, shape, exact=True, out="R", **info)
             check_scalar("fluid_iter", m, m_ref, shape, exact=True, out="max|R|^2", **info)
+            check_update(err, small, r, m, shape, **info)
             del r, v_ref, r_ref
             v8, m8 = fluid_sweep_max(*args)
             v8_ref, m8_ref = fluid_sweep_max_ref(*args)
@@ -2146,8 +2193,8 @@ def phase_times(dev) -> dict:
               **({"k": ELASTIC_K} if name == "elastic_block" else {}),
               **({"kernelwidth": KW} if name.startswith(("demons", "compose_")) else {}),
               **t})
-    # One fluid iteration by each route: B7 and the plain Euler tail; B8,
-    # the gate and B9 (the two routes give the same bits).
+    # One fluid iteration by each route: B7 and U4; B8, the gate and B9
+    # (the two routes give the same bits).
     one = make_fluid_step(*FLUID)
     two = make_fluid_two_pass_step(*FLUID)
     step_args = fluid_args[:3]
@@ -2159,6 +2206,7 @@ def phase_times(dev) -> dict:
     times.update(batch_times(dev))
     times.update(upsample_times(dev))
     times.update(downsample_times(dev))
+    times.update(update_times(dev))
     emit({"phase": "times", "demons_tiles": {
         "demons_onepass": k_op.onepass_plan(KW),
         "demons_correspondence": k_df.correspondence_plan(KW),
@@ -2250,6 +2298,39 @@ def downsample_times(dev) -> dict:
                 rows.setdefault("downsample", row)
             del x, pool_input
             torch.cuda.empty_cache()
+    return rows
+
+
+def update_times(dev) -> dict:
+    """U4 at the 4DCT cell's level, 640 pairs of 512^2, every pair listed
+    and 3 in 4 of them (the plain tail's gather path), and at the one-pass
+    step's largest level, one pair of 8192^2: each beside its plain version
+    (the plain tail), its bound (u and R read, u' written once: 24 B a
+    listed pixel) and its launches a call, every pair stepping. The first
+    row goes into the kernel table."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows = {}
+    for b, n, listed in ((640, 512, range(640)), (640, 512, [p for p in range(640) if p % 4]),
+                         (1, 8192, [0])):
+        pairs = _build.Pairs(listed, b)
+        u = torch.randn((b, 2, n, n), generator=gen, device=dev)
+        r = torch.randn((len(pairs), 2, n, n), generator=gen, device=dev) * 0.3
+        maxsq = motion_max_normsq(r)
+        out = torch.empty_like(u)
+        kernels.reset_launches()
+        fluid_update_batch(u, r, maxsq, pairs, *EULER, out)
+        launches = kernels.LAUNCHES["fluid_update"]
+        # No PyTorch call computes it: the gate is a where on a timestep.
+        row = {"ms": median_ms(lambda: fluid_update_batch(u, r, maxsq, pairs, *EULER, out)),
+               "plain_ms": median_ms(lambda: fluid_update_batch_ref(u, r, maxsq, pairs, *EULER,
+                                                                    out)),
+               **bound("fluid_update", len(pairs) * n * n), "library_ms": None}
+        emit({"phase": "times", "kernel": "fluid_update", "shape": [b, n, n],
+              "pairs_listed": len(pairs), "launches_a_call": launches,
+              "stepping": int((EULER[0] / maxsq.double().sqrt() < EULER[1]).sum()), **row})
+        rows.setdefault("fluid_update", row)
+        del u, r, out
+        torch.cuda.empty_cache()
     return rows
 
 

@@ -385,9 +385,9 @@ def _solve_level_fluid(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     A level whose larger extent exceeds ``_DERIV_BARRIER_MIN_EXTENT`` runs
     the red-black step in two passes that never store R (B8, then the gate,
     then B9), the JAX package's huge-grid iteration; it gives the same bits
-    as the one-pass step (B7 and the plain Euler update). A spectral
-    Navier-Lame solver takes neither: its velocity is the solve of the
-    force, the rest of the step plain tensor ops."""
+    as the one-pass step (B7, then U4). A spectral Navier-Lame solver takes
+    neither: its velocity is the solve of the force, R and ``max |R|^2``
+    plain tensor ops, then U4."""
     kw = dict(dumax=cfg.dumax, timestep_skip=cfg.timestep_skip,
               maxabs_bug=cfg.compat.maxabs_bug,
               reference_stencil=cfg.compat.elastic_stencil_reference)
@@ -466,9 +466,12 @@ def _fluid_chunk(b: int) -> int:
     copies, composes, warps or derives at once outside its kernels' pair
     axes: a quarter of the stack. A regrid's chunk then holds at most three
     fields of this many pairs (estimate, motion, composed), less than the
-    R of all ``b`` pairs at a level's first step, and the tail's gather has
-    a buffer of its own: the loop's peak falls at that first step whatever
-    the data, and does not follow how many pairs regrid or stop together."""
+    R of all ``b`` pairs at a level's first step; the row copies of the
+    Logger prevs and of the stacks at a solve's ends go through one buffer
+    of this many pairs (the loop's ``scratch``), and the Euler update
+    gathers nothing (U4 reads each pair at its place). So the loop's peak
+    falls at that first step whatever the data, and does not follow how
+    many pairs regrid or stop together."""
     return max(1, b // 4)
 
 
@@ -477,7 +480,7 @@ def _solve_level_fluid_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale:
     lockstep, for the red-black SOR sweep at extents up to
     ``_DERIV_BARRIER_MIN_EXTENT`` (``lockstep_refusal``). Each iteration
     launches B7 once for the pairs still iterating (``make_fluid_batch_step``:
-    their Euler tails on per-pair timesteps) and B5 once into ``[n, 3]``
+    then U4, their Euler updates on per-pair timesteps) and B5 once into ``[n, 3]``
     (``fluid_metrics_batch``), and makes one host read of it, from which
     each pair's Logger error, stop and regrid test are decided as
     ``_solve_level_fluid`` decides them for one pair. The pairs that

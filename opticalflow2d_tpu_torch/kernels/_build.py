@@ -83,6 +83,7 @@ _SIGNATURES = {
                                _I, _I, _P), _I),
     "of2d_fluid_sweep_max": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P), _I),
     "of2d_fluid_euler": ((_P, _P, _P, _P, _I, _I, _P), _I),
+    "of2d_fluid_update": ((_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P), _I),
     "of2d_upsample_motion": ((_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P), _I),
     "of2d_derive": ((_P, _P, _P, _I, _I, _P), _I),
     "of2d_derive_batch": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),

@@ -6,9 +6,12 @@ memory (CUDA ``csrc/fluid_iter.cu``, the counterpart of
         -> material derivative R -> write (vel', R), max |R|^2
 
 (reference ``src/regularization/OpticalFlow/OpticalFlowFluid.cpp:123-140``).
-The timestep ``dt = dumax / sqrt(max |R|^2)`` and the gated Euler update are
-global and stay outside (``solvers.fluid.make_fluid_step``). max is exact in
-any order, so ``sqrt(maxsq)`` equals ``motion_maxabs`` of the kernel's R.
+The timestep ``dt = dumax / sqrt(max |R|^2)`` needs the whole of R, so the
+gated Euler update is a kernel of its own (``fluid_update_batch``, U4, CUDA
+``csrc/fluid_euler.cu``): on the listed pairs of a stack, each pair's
+timestep from its ``max |R|^2`` on the card, no host read
+(``solvers.fluid.make_fluid_step`` runs it on a list of one). max is exact
+in any order, so ``sqrt(maxsq)`` equals ``motion_maxabs`` of the kernel's R.
 
 The two-pass iteration of large grids never stores R
 (``fluid_sweep_max_pallas`` and ``fluid_euler_pallas`` there):
@@ -41,7 +44,7 @@ import torch
 from opticalflow2d_tpu_torch import kernels
 from opticalflow2d_tpu_torch.kernels import _build
 from opticalflow2d_tpu_torch.ops.grid import partial_x, partial_x_rows, partial_y
-from opticalflow2d_tpu_torch.ops.reduce import motion_max_normsq
+from opticalflow2d_tpu_torch.ops.reduce import motion_max_normsq, sqrt_rounded
 from opticalflow2d_tpu_torch.solvers.base import Derivatives, lssd_force
 from opticalflow2d_tpu_torch.solvers.elastic import sor_scalars, sor_sweep
 
@@ -253,6 +256,58 @@ def fluid_euler(u: torch.Tensor, vel: torch.Tensor, gate: torch.Tensor) -> torch
                   out.data_ptr(), nx, ny)
     kernels.LAUNCHES["fluid_euler"] += 1
     return out
+
+
+def fluid_update_batch_ref(u: torch.Tensor, r: torch.Tensor, maxsq: torch.Tensor, pairs,
+                           dumax: float, timestep_skip: float,
+                           u_out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of U4, the one-pass step's tail as the plain
+    chain runs it (the JAX package's ``solvers/fluid.py:99-102``): each
+    listed pair's ``dt = dumax / sqrt(maxsq)`` (float32, the root correctly
+    rounded), and ``u' = where(dt < timestep_skip, u + R * where(dt <
+    timestep_skip, dt, 0), u)`` into ``u_out[p]``; R and maxsq in list
+    order, u at each pair's place. ``maxsq == 0`` gives ``dt = inf``, a
+    skip. Returns ``u_out``."""
+    pairs = _build.as_pairs(pairs, u.shape[0])
+    dt = (torch.full_like(maxsq, _build.f32(dumax)) / sqrt_rounded(maxsq))[:, None, None, None]
+    do_step = dt < _build.f32(timestep_skip)
+    gate = torch.where(do_step, dt, 0.0)
+    if pairs.whole:
+        return torch.where(do_step, u + r * gate, u, out=u_out)
+    idx = pairs.on(u.device, torch.int64)
+    mine = u.index_select(0, idx)
+    return u_out.index_copy_(0, idx, torch.where(do_step, mine + r * gate, mine))
+
+
+def fluid_update_batch(u: torch.Tensor, r: torch.Tensor, maxsq: torch.Tensor, pairs,
+                       dumax: float, timestep_skip: float, u_out: torch.Tensor) -> torch.Tensor:
+    """The gated Euler update of the listed pairs of a stack in one launch
+    (U4): ``u [B, 2, nx, ny]``, R ``[n_pairs, 2, nx, ny]`` and ``maxsq
+    [n_pairs]`` in list order (as ``fluid_iter_batch`` returns them),
+    ``pairs`` distinct indices in ``[0, B)`` (or ``_build.Pairs``, whose
+    device list is kept). Writes pair ``p``'s ``where(dt < timestep_skip, u
+    + R dt, u)``, ``dt = dumax / sqrt(maxsq)``, into ``u_out[p]`` and leaves
+    the other pairs of ``u_out`` as they are; returns ``u_out``. Bit-equal
+    to ``fluid_update_batch_ref``. The plain version on the CPU, the kernel
+    on CUDA."""
+    if _build.on_cpu(u, r, maxsq, u_out):
+        return fluid_update_batch_ref(u, r, maxsq, pairs, dumax, timestep_skip, u_out)
+    if u.device.type != "cuda":
+        raise ValueError(f"no fluid kernel for device {u.device}")
+    if u.dim() != 4 or u.shape[1] != 2:
+        raise ValueError(f"u must be [B, 2, nx, ny], got {tuple(u.shape)}")
+    b, _, nx, ny = u.shape
+    pairs = _build.as_pairs(pairs, b)
+    n = len(pairs)
+    _build.check_cuda("u", u, (b, 2, nx, ny), u.device)
+    _build.check_cuda("r", r, (n, 2, nx, ny), u.device)
+    _build.check_cuda("maxsq", maxsq, (n,), u.device)
+    _build.check_out(u_out, u, u, r)
+    _build.launch("of2d_fluid_update", u.device, u.data_ptr(), r.data_ptr(), maxsq.data_ptr(),
+                  pairs.on(u.device).data_ptr(), n, nx, ny, _build.f32(dumax),
+                  _build.f32(timestep_skip), u_out.data_ptr())
+    kernels.LAUNCHES["fluid_update"] += 1
+    return u_out
 
 
 def fluid_iter_strip_ref(u_pad: torch.Tensor, vel_pad: torch.Tensor, g_pad: torch.Tensor,

@@ -16,14 +16,16 @@ red-black ordering); the lexicographic ordering runs the plain chain on any
 device. With a ``spectral_solve`` (``solvers.navier_lame``) the velocity is
 the exact Navier-Lame solution of the current force instead of one sweep,
 and the material derivative and ``max |R|^2`` are plain tensor ops, as in
-JAX, where the fused kernel is not taken either (``fluid.py:55-57``). The
-tail stays on the device as plain tensor ops on 0-d tensors, so a step
-makes no host read. ``maxabs_bug=True`` reproduces the reference's
-``Motion::maxabs`` defect, which changes the timestep sequence.
+JAX, where the fused kernel is not taken either (``fluid.py:55-57``). Step
+4, the timestep and the gated update, is one kernel on CUDA in every branch
+(``fluid_update_batch``, U4, on a list of one pair), which reads
+``max |R|^2`` on the device, so a step makes no host read.
+``maxabs_bug=True`` reproduces the reference's ``Motion::maxabs`` defect,
+which changes the timestep sequence.
 
 ``make_fluid_batch_step`` is the step on the listed pairs of a stack (B7's
-pair axis, red-black), the Euler tail on each pair's own timestep: the
-lockstep driver's step, each pair's bits those of ``make_fluid_step``.
+pair axis, red-black), then U4 on each pair's own timestep: the lockstep
+driver's step, each pair's bits those of ``make_fluid_step``.
 
 ``make_fluid_two_pass_step`` is the same step in two passes that never
 store R (red-black only): the sweep with ``max |R|^2``, the timestep gate
@@ -45,6 +47,7 @@ from opticalflow2d_tpu_torch.kernels.fluid_fused import (
     fluid_iter_batch,
     fluid_iter_ref,
     fluid_sweep_max,
+    fluid_update_batch,
     material_derivative,
 )
 from opticalflow2d_tpu_torch.ops.reduce import motion_max_normsq, sqrt_rounded
@@ -68,6 +71,7 @@ def make_fluid_step(mu: float, lam: float, omega: float, dumax: float = 0.65,
         raise ValueError(f"unknown SOR ordering {sor_ordering!r}")
     dumax32 = float(np.float32(dumax))
     skip32 = float(np.float32(timestep_skip))
+    one = Pairs((0,), 1)
 
     def step(u: torch.Tensor, velocity: torch.Tensor,
              g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,10 +85,9 @@ def make_fluid_step(mu: float, lam: float, omega: float, dumax: float = 0.65,
         else:
             velocity, r, maxsq = fluid_iter_ref(u, velocity, g, mu, lam, omega,
                                                 reference_stencil, maxabs_bug, sor_ordering)
-        dt = _timestep(maxsq, dumax32)
-        do_step = dt < skip32
-        u = torch.where(do_step, u + r * torch.where(do_step, dt, 0.0), u)
-        return u, velocity
+        u_out = torch.empty_like(u)
+        fluid_update_batch(u[None], r[None], maxsq.reshape(1), one, dumax32, skip32, u_out[None])
+        return u_out, velocity
 
     return step
 
@@ -94,39 +97,24 @@ def make_fluid_batch_step(mu: float, lam: float, omega: float, dumax: float = 0.
                           reference_stencil: bool = True):
     """Build the red-black fluid step on the listed pairs of a stack,
     ``(u, velocity, g, pairs, vel_out, u_out, scratch) -> None``: ``u``,
-    ``velocity [B, 2, nx, ny]``, ``g [B, 3, nx, ny]``, ``pairs`` a ``Pairs``
-    of the stack, ``scratch [C, 2, nx, ny]``. It writes each listed pair's
-    velocity into ``vel_out[p]`` and its new motion into ``u_out[p]`` and
-    leaves the other pairs as they are. One launch of B7 for all the pairs
-    (``fluid_iter_batch``), then ``make_fluid_step``'s tail on the ``[n, 1,
-    1, 1]`` timesteps, so each pair's motion and velocity equal its own
-    step's bit for bit. The tail runs in place on B7's R, which it takes in
-    list order; where the list is not the whole stack, on the listed pairs'
-    motion gathered to match, ``C`` pairs at a time through ``scratch``."""
+    ``velocity [B, 2, nx, ny]``, ``g [B, 3, nx, ny]``, ``pairs`` a
+    ``Pairs`` of the stack. It writes each listed pair's velocity into
+    ``vel_out[p]`` and its new motion into ``u_out[p]`` and leaves the
+    other pairs as they are. One launch of B7 for all the pairs
+    (``fluid_iter_batch``), then one of U4 (``fluid_update_batch``) on B7's
+    R and ``max |R|^2`` in list order and each pair's motion at its place,
+    so each pair's motion and velocity equal its own step's bit for bit.
+    ``scratch``, the lockstep loop's row-copy buffer, is not read: the loop
+    calls its step with it, and the benchmark's own tests put a step of
+    that signature in this one's place."""
     dumax32 = float(np.float32(dumax))
     skip32 = float(np.float32(timestep_skip))
 
     def step(u: torch.Tensor, velocity: torch.Tensor, g: torch.Tensor, pairs: Pairs,
-             vel_out: torch.Tensor, u_out: torch.Tensor, scratch: torch.Tensor) -> None:
+             vel_out: torch.Tensor, u_out: torch.Tensor, scratch=None) -> None:
         _, r, maxsq = fluid_iter_batch(u, velocity, g, mu, lam, omega, reference_stencil,
                                        maxabs_bug, pairs, vel_out)
-        dt = _timestep(maxsq, dumax32)[:, None, None, None]
-        do_step = dt < skip32
-        # u + R dt, as u + r * where(do_step, dt, 0) rounds it (an add
-        # commutes exactly), then the gate; each pair's R is scratch.
-        r.mul_(torch.where(do_step, dt, 0.0))
-        if pairs.whole:
-            r.add_(u)
-            torch.where(do_step, r, u, out=u_out)
-            return
-        idx = pairs.on(u.device, torch.int64)
-        for z in range(0, len(idx), scratch.shape[0]):
-            i = idx[z:z + scratch.shape[0]]
-            mine = torch.index_select(u, 0, i, out=scratch[:len(i)])
-            rz = r[z:z + len(i)]
-            rz.add_(mine)
-            torch.where(do_step[z:z + len(i)], rz, mine, out=rz)
-            u_out.index_copy_(0, i, rz)
+        fluid_update_batch(u, r, maxsq, pairs, dumax32, skip32, u_out)
 
     return step
 

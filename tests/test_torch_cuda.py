@@ -29,13 +29,14 @@ from opticalflow2d_tpu_torch.kernels.elastic_block import elastic_block, elastic
 from opticalflow2d_tpu_torch.engine import registration
 from opticalflow2d_tpu_torch.kernels.fluid_fused import (
     fluid_euler, fluid_euler_ref, fluid_iter, fluid_iter_ref, fluid_sweep_max,
-    fluid_sweep_max_ref)
+    fluid_sweep_max_ref, fluid_update_batch, fluid_update_batch_ref)
 from opticalflow2d_tpu_torch.kernels.logger_norms import (
     fluid_metrics, fluid_metrics_ref, logger_norms, logger_norms_ref)
 from opticalflow2d_tpu_torch.kernels.upsample import upsample_motion, upsample_motion_ref
 from opticalflow2d_tpu_torch.kernels.warp_fused import (
     compose, compose_ref, warp2d, warp2d_ref)
 from opticalflow2d_tpu_torch.ops import resample
+from opticalflow2d_tpu_torch.ops.reduce import motion_max_normsq
 from opticalflow2d_tpu_torch.solvers.base import derivatives
 from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_step, make_fluid_two_pass_step
 from opticalflow2d_tpu_torch.kernels import diffusion_block as k_diff
@@ -685,7 +686,7 @@ def test_fluid_euler_matches_plain(cuda, shape, gate):
 @pytest.mark.parametrize("shape", [(256, 256), (100, 77)])
 def test_two_pass_iteration_equals_one_pass_iteration(cuda, shape):
     """One iteration by each route, bit for bit: B8 + gate + B9 against B7 +
-    the plain Euler update; B9's R equals B7's."""
+    U4; B9's R equals B7's."""
     u, vel, g = _fluid_inputs(shape, cuda)
     one = make_fluid_step(0.25, 0.1, 1.5)(u, vel, g)
     two = make_fluid_two_pass_step(0.25, 0.1, 1.5)(u, vel, g)
@@ -714,7 +715,81 @@ def test_forced_two_pass_route_equals_default_gpu_run(cuda):
     assert [t.regrids for t in got.traces] == [t.regrids for t in want.traces]
     assert torch.equal(got.motion, want.motion)
     assert kernels.LAUNCHES["fluid_sweep_max"] == kernels.LAUNCHES["fluid_euler"] == iterations
-    assert kernels.LAUNCHES["fluid_iter"] == 0
+    assert kernels.LAUNCHES["fluid_iter"] == kernels.LAUNCHES["fluid_update"] == 0
+
+
+# U4 on (stack shape, pairs listed): the 4DCT cell's level with a shuffled
+# list of 5 of 8 pairs, a shape whose pair size is no multiple of 4 floats
+# (the one-float words), and the one-pair step's list of one at 2048^2.
+UPDATE_SHAPES = [((8, 512, 512), [5, 0, 7, 2, 3]), ((3, 33, 47), [2, 0, 1]),
+                 ((1, 2048, 2048), [0])]
+
+
+@pytest.mark.parametrize("shape,pairs", UPDATE_SHAPES)
+def test_fluid_update_equals_plain_bit_for_bit(cuda, shape, pairs):
+    """U4 against its plain version, bit for bit, into a NaN-filled stack:
+    each listed pair's motion, the unlisted pairs unwritten; R in list
+    order with (where the list has three pairs or more) one pair at rest
+    (``maxsq`` 0) and one whose ``dt >= timestep_skip``, which keep u. The
+    whole stack in order too, and one launch a call."""
+    b, nx, ny = shape
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    u = torch.randn((b, 2, nx, ny), generator=gen, device=cuda)
+    for listed in (pairs, list(range(b))):
+        r = torch.randn((len(listed), 2, nx, ny), generator=gen, device=cuda) * 0.3
+        if len(listed) >= 3:
+            r[1] = 0.0
+            r[2] *= 1e-5
+        maxsq = motion_max_normsq(r)
+        fill = torch.full_like(u, float("nan"))
+        kernels.reset_launches()
+        got = fluid_update_batch(u, r, maxsq, listed, 0.65, 65.0, fill.clone())
+        assert kernels.LAUNCHES["fluid_update"] == 1
+        want = fluid_update_batch_ref(u, r, maxsq, listed, 0.65, 65.0, fill.clone())
+        torch.cuda.synchronize()
+        for z, p in enumerate(listed):
+            assert torch.equal(got[p], want[p])
+            if len(listed) >= 3 and z in (1, 2):
+                assert torch.equal(got[p], u[p])
+        for p in set(range(b)) - set(listed):
+            assert bool(got[p].isnan().all())
+
+
+def test_fluid_update_rejects_what_the_kernel_does_not_take(cuda):
+    u = torch.zeros((3, 2, 16, 16), device=cuda)
+    r, maxsq = torch.zeros((2, 2, 16, 16), device=cuda), torch.ones(2, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        fluid_update_batch(u, r, maxsq, [0], 0.65, 65.0, torch.empty_like(u))
+    with pytest.raises(ValueError, match="share memory"):
+        fluid_update_batch(u, r, maxsq, [0, 2], 0.65, 65.0, u)
+    with pytest.raises(ValueError, match="distinct"):
+        fluid_update_batch(u, r, maxsq, [1, 1], 0.65, 65.0, torch.empty_like(u))
+
+
+@pytest.mark.parametrize("route", ["lockstep", "redblack", "lexicographic", "spectral"])
+def test_every_fluid_step_updates_through_the_kernel(cuda, route):
+    """U4 launches once for each lockstep iteration (as many as the loop's
+    host reads, B5's launches) in a small ``register_batch``, and once for
+    each one-pass iteration of ``register`` below 8192^2, in each branch of
+    the step: B7, the lexicographic plain sweep, the spectral solve."""
+    from opticalflow2d_tpu_torch.parallel import register_batch
+    irefs, imovs, _, _ = _batch_stack((96, 64), cuda, n=3)
+    imovs = torch.stack([torch.roll(imovs[i], (i, -i), (0, 1)) for i in range(3)])
+    extra = {"lexicographic": dict(sor_ordering="lexicographic"),
+             "spectral": dict(navier_lame_solver="spectral")}.get(route, {})
+    cfg = RegConfig(method=Method.FLUID, niter=(25, 25), nscales=1, nrefine=2, mu=0.25,
+                    lam=0.0, **extra)
+    kernels.reset_launches()
+    if route == "lockstep":
+        res = register_batch(irefs, imovs, cfg, impl="vmap")
+        reads = sum(int(t.iterations.max()) for t in res.traces)
+        assert kernels.LAUNCHES["fluid_update"] == kernels.LAUNCHES["fluid_metrics_batch"] == reads
+    else:
+        res = register(irefs[0], imovs[0], cfg)
+        iterations = sum(t.iterations for t in res.traces)
+        assert kernels.LAUNCHES["fluid_update"] == iterations > 0, kernels.LAUNCHES
+        assert kernels.LAUNCHES["fluid_iter"] == (iterations if route == "redblack" else 0)
+    assert kernels.LAUNCHES["fluid_euler"] == 0
 
 
 # --- the strip kernels K1-K4 (parallel.spatial) ---------------------------------

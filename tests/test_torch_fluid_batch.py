@@ -1,7 +1,7 @@
 """The lockstep fluid driver of ``register_batch`` (``engine.registration.
 _solve_level_fluid_batch``) and the pair axes of its kernels' plain
 versions (B7 ``fluid_iter_batch``, B5 ``fluid_metrics_batch``, U2
-``derive_batch``), on the CPU.
+``derive_batch``, U4 ``fluid_update_batch``), on the CPU.
 
 Every pair of a stack registered in lockstep equals its own ``register``,
 bit for bit: motion, coarse motion, Logger errors, iteration and regrid
@@ -23,13 +23,16 @@ from opticalflow2d_tpu_torch.kernels._build import Pairs
 from opticalflow2d_tpu_torch.kernels.derive import derive, derive_batch
 from opticalflow2d_tpu_torch.kernels.diffusion_block import stack_derivs
 from opticalflow2d_tpu_torch.kernels.fluid_fused import (
-    fluid_iter, fluid_iter_batch, fluid_iter_batch_ref)
+    fluid_iter, fluid_iter_batch, fluid_iter_batch_ref, fluid_iter_ref, fluid_update_batch,
+    fluid_update_batch_ref, material_derivative)
 from opticalflow2d_tpu_torch.kernels.logger_norms import (
     fluid_metrics, fluid_metrics_batch, fluid_metrics_batch_ref)
 from opticalflow2d_tpu_torch.parallel import register_batch
 from opticalflow2d_tpu_torch.parallel.batch import _resolve_impl
-from opticalflow2d_tpu_torch.solvers.base import derivatives
+from opticalflow2d_tpu_torch.ops.reduce import motion_max_normsq, sqrt_rounded
+from opticalflow2d_tpu_torch.solvers.base import Derivatives, derivatives, lssd_force
 from opticalflow2d_tpu_torch.solvers.fluid import make_fluid_batch_step, make_fluid_step
+from opticalflow2d_tpu_torch.solvers.navier_lame import make_spectral_navier_lame_solver
 from opticalflow2d_tpu_torch.utils import profiling
 
 SHAPE = (48, 40)
@@ -99,11 +102,11 @@ def test_lockstep_fluid_equals_each_register(stacks, singles, impl, monkeypatch)
 @pytest.mark.parametrize("chunk", [2, 4])
 def test_lockstep_fluid_in_other_chunks_equals_each_register(stacks, singles, chunk,
                                                              monkeypatch):
-    """The regrids, the row copies and the Euler tail's gathers in chunks
-    of other sizes than a quarter of the stack (``_fluid_chunk``: one pair
-    here, a few hundred at 640 pairs): every pair as its own ``register``
-    still, bit for bit. Two splits the tail of three pairs; four takes
-    every list in one chunk. Some regrids hold several pairs."""
+    """The regrids and the row copies in chunks of other sizes than a
+    quarter of the stack (``_fluid_chunk``: one pair here, a few hundred at
+    640 pairs): every pair as its own ``register`` still, bit for bit. Two
+    splits a copy of three pairs; four takes every list in one chunk. Some
+    regrids hold several pairs."""
     monkeypatch.setattr(registration, "_fluid_chunk", lambda b: chunk)
     calls = _recorded(monkeypatch)
     got = register_batch(*stacks, CFG, impl="vmap", device="cpu")
@@ -248,22 +251,148 @@ def test_batch_step_equals_single_steps(pairs):
     """The lockstep step on a list of pairs, one of them at rest (R = 0, so
     its timestep is infinite and the Euler update is skipped): each listed
     pair's motion and velocity equal its own step's; the others are not
-    written. A list that is not the whole stack takes its tail as many
-    pairs at a time as the gather buffer holds: one, two, or all."""
+    written."""
     u, vel, g = _fields()
     u[1], vel[1], g[1] = 0.0, 0.0, 0.0
     step = make_fluid_batch_step(0.25, 0.0, 0.66)
     single = make_fluid_step(0.25, 0.0, 0.66)
-    for chunk in (1, 2, 4):
-        u_out, vel_out = torch.full_like(u, 5.0), torch.full_like(vel, 6.0)
-        step(u, vel, g, Pairs(pairs, 4), vel_out, u_out, torch.empty((chunk, 2) + SHAPE))
-        for p in range(4):
-            if p in pairs:
-                want_u, want_vel = single(u[p], vel[p], g[p])
-                assert torch.equal(u_out[p], want_u) and torch.equal(vel_out[p], want_vel)
-            else:
-                assert (u_out[p] == 5.0).all() and (vel_out[p] == 6.0).all()
-        assert torch.equal(u_out[1], u[1])
+    u_out, vel_out = torch.full_like(u, 5.0), torch.full_like(vel, 6.0)
+    step(u, vel, g, Pairs(pairs, 4), vel_out, u_out)
+    for p in range(4):
+        if p in pairs:
+            want_u, want_vel = single(u[p], vel[p], g[p])
+            assert torch.equal(u_out[p], want_u) and torch.equal(vel_out[p], want_vel)
+        else:
+            assert (u_out[p] == 5.0).all() and (vel_out[p] == 6.0).all()
+    assert torch.equal(u_out[1], u[1])
+
+
+# --- U4, the gated Euler update, against the plain tail it replaced ------------
+
+DUMAX, SKIP = float(np.float32(0.65)), float(np.float32(65.0))
+MU, LAM, OMEGA = 0.25, 0.0, 0.66
+
+
+def _plain_tail(u, r, maxsq):
+    """``make_fluid_step``'s update as plain ops on its 0-d timestep."""
+    dt = torch.full_like(maxsq, DUMAX) / sqrt_rounded(maxsq)
+    do_step = dt < SKIP
+    return torch.where(do_step, u + r * torch.where(do_step, dt, 0.0), u)
+
+
+def _plain_batch_tail(u, r, maxsq, pairs, u_out, chunk):
+    """``make_fluid_batch_step``'s update as plain ops: in place on R in
+    list order, the listed pairs' motion gathered ``chunk`` pairs at a time
+    where the list is not the whole stack."""
+    dt = (torch.full_like(maxsq, DUMAX) / sqrt_rounded(maxsq))[:, None, None, None]
+    do_step = dt < SKIP
+    r = r.clone()
+    r.mul_(torch.where(do_step, dt, 0.0))
+    if pairs.whole:
+        r.add_(u)
+        torch.where(do_step, r, u, out=u_out)
+        return u_out
+    idx = pairs.on(u.device, torch.int64)
+    scratch = torch.empty((chunk,) + tuple(u.shape[1:]))
+    for z in range(0, len(idx), chunk):
+        i = idx[z:z + chunk]
+        mine = torch.index_select(u, 0, i, out=scratch[:len(i)])
+        rz = r[z:z + len(i)]
+        rz.add_(mine)
+        torch.where(do_step[z:z + len(i)], rz, mine, out=rz)
+        u_out.index_copy_(0, i, rz)
+    return u_out
+
+
+def _increments(pairs):
+    """R in list order for ``pairs`` of a stack of 4 and its ``max |R|^2``:
+    pair 1 (where listed) at rest, ``maxsq`` 0, and pair 2 so small that
+    ``dt >= timestep_skip``: both keep their motion."""
+    rng = np.random.default_rng(7)
+    r = torch.from_numpy(rng.normal(0, 0.3, (len(pairs), 2) + SHAPE).astype(np.float32))
+    for z, p in enumerate(pairs):
+        r[z] *= {1: 0.0, 2: 1e-4}.get(p, 1.0)
+    return r, motion_max_normsq(r)
+
+
+def _update_case(pairs, entry):
+    """U4's plain version, or its entry on CPU tensors, against the plain
+    batch tail at each gather size, into a stack filled with 5: the
+    unlisted pairs stay 5, and the skipped pairs keep their motion."""
+    u, _, _ = _fields()
+    r, maxsq = _increments(pairs)
+    listed = Pairs(pairs, 4)
+    got = entry(u, r, maxsq, listed, DUMAX, SKIP, torch.full_like(u, 5.0))
+    for p in set(range(4)) - set(pairs):
+        assert (got[p] == 5.0).all()
+    kept = [p for z, p in enumerate(pairs)
+            if float(maxsq[z]) == 0.0 or DUMAX / float(maxsq[z]) ** 0.5 >= SKIP]
+    assert 0 < len(kept) < len(pairs)
+    wants = [_plain_batch_tail(u, r, maxsq, listed, torch.full_like(u, 5.0), chunk)
+             for chunk in (1, 2, 4)]
+    return [got] * 3 + [got[p] for p in kept], wants + [u[p] for p in kept]
+
+
+def _batch_step_case(pairs, bug=False):
+    """The rewired lockstep step against B7 and the plain batch tail."""
+    u, vel, g = _fields()
+    u[1], vel[1], g[1] = 0.0, 0.0, 0.0
+    listed = Pairs(pairs, 4)
+    u_out, vel_out = torch.full_like(u, 5.0), torch.full_like(vel, 6.0)
+    make_fluid_batch_step(MU, LAM, OMEGA, maxabs_bug=bug)(u, vel, g, listed, vel_out, u_out)
+    _, r, maxsq = fluid_iter_batch(u, vel, g, MU, LAM, OMEGA, True, bug, listed)
+    want = _plain_batch_tail(u, r, maxsq, listed, torch.full_like(u, 5.0), 1)
+    return [u_out], [want]
+
+
+def _step_case(ordering="redblack", bug=False, spectral=False, at_rest=False):
+    """The rewired one-pair step in each branch against its sweep and the
+    plain tail."""
+    u, vel, g = (x[0] for x in _fields())
+    if at_rest:
+        u, vel, g = torch.zeros_like(u), torch.zeros_like(vel), torch.zeros_like(g)
+    solve = make_spectral_navier_lame_solver(*SHAPE, MU, LAM) if spectral else None
+    step = make_fluid_step(MU, LAM, OMEGA, maxabs_bug=bug, sor_ordering=ordering,
+                           spectral_solve=solve)
+    got_u, got_vel = step(u, vel, g)
+    if spectral:
+        v = solve(lssd_force(Derivatives(g[:2], g[2]), u))
+        r = material_derivative(u, v)
+        maxsq = motion_max_normsq(r, bug)
+    else:
+        v, r, maxsq = fluid_iter_ref(u, vel, g, MU, LAM, OMEGA, True, bug, ordering)
+    assert float(maxsq) == 0.0 if at_rest else float(maxsq) > 0.0
+    return [got_u, got_vel], [_plain_tail(u, r, maxsq), v]
+
+
+UPDATE_CASES = {
+    "plain_every_pair": lambda: _update_case([0, 1, 2, 3], fluid_update_batch_ref),
+    "plain_some_pairs": lambda: _update_case([3, 1, 2], fluid_update_batch_ref),
+    "entry_every_pair": lambda: _update_case([0, 1, 2, 3], fluid_update_batch),
+    "entry_some_pairs": lambda: _update_case([2, 0], fluid_update_batch),
+    "batch_step_every_pair": lambda: _batch_step_case([0, 1, 2, 3]),
+    "batch_step_some_pairs": lambda: _batch_step_case([3, 1]),
+    "batch_step_maxabs_bug": lambda: _batch_step_case([2, 1, 0], bug=True),
+    "step_redblack": lambda: _step_case(),
+    "step_maxabs_bug": lambda: _step_case(bug=True),
+    "step_at_rest": lambda: _step_case(at_rest=True),
+    "step_lexicographic": lambda: _step_case("lexicographic"),
+    "step_spectral": lambda: _step_case(spectral=True),
+}
+
+
+@pytest.mark.parametrize("case", list(UPDATE_CASES))
+def test_fluid_update_gives_the_plain_tails_bits(case):
+    """U4's plain version and entry (the plain version on CPU tensors), and
+    the steps rewired onto it, bit for bit against the plain tails they
+    replaced: the whole list and partial lists, whose unlisted pairs are
+    not written; a pair at rest (``maxsq`` 0, ``dt`` infinite) and one with
+    ``dt >= timestep_skip`` keep their motion; ``maxabs_bug``; the
+    lexicographic and spectral branches of the one-pair step."""
+    got, want = UPDATE_CASES[case]()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("pairs", [[0, 1, 2, 3], [3, 0]])
