@@ -71,7 +71,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    B5's three numbers and B7's max |R|^2 bit for bit against both; U2's
    single launches also bit-equal to the plain version; U4 on B7's R and
    max |R|^2 of the pairs, each against its list of one), and the pairs
-   left out of the subset unwritten by B7, U2 and U4.
+   left out of the subset unwritten by B7, U2 and U4; and B10 by its pair
+   axis, by composition and by addition, on small fields and on ones that
+   send samples out of bounds: each pair's field and Logger sums bit-equal
+   to its single launch's, the field within 1e-6 of the plain version, the
+   pairs left out unwritten.
 3. The main paths through the session API at 4096^2, each with the launch
    counts set to 0 just before it and read just after:
    a. diffusion on a pair of three blobs, 5 levels (SSD reduction >= 0.9,
@@ -122,10 +126,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
       the blob pair at 1024^2 (each shift's components scaled by factors
       in [0.5, 1.5] from the seed; nscales 2) by diffusion, 4 pairs of the tiled pair at
       1024^2 by elastic [0.5, 0] and curvature (matmul route, 100
-      iterations a level), 4 at 512^2 by fluid (impl "auto" must resolve
-      to vmap); each run by the lockstep driver (impl "vmap", B1-B4
-      batched and B6 a pair; fluid B7 and B5 batched, one read an
-      iteration) and by map, and a Python loop of register as
+      iterations a level), 4 at 512^2 by fluid and by Thirion demons (the
+      demo's [1, 0.25, 2, 2, 5, 0]; impl "auto" must resolve to vmap for
+      both); each run by the lockstep driver (impl "vmap", B1-B4
+      batched and B6 a pair; fluid B7 and B5 batched, Thirion B10
+      batched, one read an iteration) and by map, and a Python loop of
+      register as
       the reference: every pair's counts equal to its register's and its
       motion bit-equal, the diffusion pairs
       stopping at two or more count vectors, each with SSD reduction >=
@@ -174,7 +180,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    over the float32 rate for the matmul routes, bytes over the memory rate
    (each pass of the transform reading and writing its planes) for the
    FFT routes. And the batched kernels on 16 pairs of 1024^2, each beside
-   its plain version and 16 single-pair launches. And the motion upsample
+   its plain version and 16 single-pair launches. And B10 by its pair axis
+   on 640 pairs of 512^2 (the 4DCT cell's finest level), every pair listed,
+   beside 640 single launches, its plain version and its bound (24 B a
+   pixel); the kernel table's row. And the motion upsample
    from 2048^2 and from 256^2 to 4096^2 beside its plain version, its
    bound and its launches a call. And the box downsample from 4096^2 and
    from 16384^2 to each level, image and field, beside its plain version,
@@ -211,7 +220,7 @@ from opticalflow2d_tpu_torch.kernels import _build
 from opticalflow2d_tpu_torch.kernels.demons_fused import (
     compose_smooth, compose_smooth_ref, demons_correspondence, demons_correspondence_ref)
 from opticalflow2d_tpu_torch.kernels.demons_onepass import (
-    thirion_onepass, thirion_onepass_ref)
+    thirion_onepass, thirion_onepass_batch, thirion_onepass_batch_ref, thirion_onepass_ref)
 from opticalflow2d_tpu_torch.kernels import demons_fused as k_df
 from opticalflow2d_tpu_torch.kernels import demons_onepass as k_op
 from opticalflow2d_tpu_torch.kernels.derive import (
@@ -392,6 +401,8 @@ BATCH_PATHS = (
      CURVATURE_NITER, {"dct_impl": "matmul"}, ("vmap", "map"), 0.0),
     ("batch_fluid", Method.FLUID, [0.25, 0.0], "tiled", N_PARITY, 4, TILED_NSCALES, NITER, {},
      ("vmap", "map"), 0.0),
+    ("batch_thirion", Method.THIRIONS_DEMONS, [1.0, 0.25, 2.0, 2.0, 5, 0], "tiled", N_PARITY, 4,
+     TILED_NSCALES, NITER, {}, ("vmap", "map"), 0.0),
 )
 # The batched kernels' checks: 3 pairs of these shapes, all listed and a
 # shuffled subset; the last two are the 4DCT cell's levels.
@@ -405,7 +416,10 @@ ONE_PAIR_KS = (8, 5)
 BATCHED = {"diffusion_block_batch": "diffusion_block", "diffusion_step_batch": "diffusion_step",
            "warp2d_batch": "warp2d", "compose_batch": "compose",
            "logger_norms_batch": "logger_norms", "fluid_iter_batch": "fluid_iter",
-           "fluid_metrics_batch": "fluid_metrics", "derive_batch": "derive"}
+           "fluid_metrics_batch": "fluid_metrics", "derive_batch": "derive",
+           "demons_onepass_batch": "demons_onepass"}
+# B10's pair axis at the 4DCT cell's finest level: pairs, extent.
+ONEPASS_BATCH = (640, 512)
 
 # The main paths: (name, method, regparams, pair, nscales). DIFFUSION_TILED
 # is the dense diffusion run beside sp_diffusion, on its pair.
@@ -517,6 +531,8 @@ KERNELS = {
                             "opticalflow2d_tpu/pallas_kernels/logger_norms.py:129"),
     "derive": ("cuda", "opticalflow2d_tpu_torch/csrc/derive.cu",
                "none: the JAX package derives in jnp (opticalflow2d_tpu/solvers/base.py)"),
+    "demons_onepass_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/demons_onepass.cu",
+                             "opticalflow2d_tpu/pallas_kernels/demons_onepass.py:310"),
     "derive_batch": ("cuda", "opticalflow2d_tpu_torch/csrc/derive.cu",
                      "none: the JAX package derives in jnp (opticalflow2d_tpu/solvers/base.py)"),
     "upsample_motion": ("cuda", "opticalflow2d_tpu_torch/csrc/upsample.cu",
@@ -740,18 +756,19 @@ def batch_stack(dev, pair: str, n: int, count: int, nx: int | None = None,
 
 
 def check_pairs(err: dict, name: str, shape, pairs, got, single, plain, sums=None,
-                **info) -> None:
+                plain_tol: float = 0.0, **info) -> None:
     """Hold a batched launch's listed pairs against their own single-pair
     launches (fields and Logger sums bit for bit) and their plain versions
-    (fields bit for bit, sums within SUMS_RTOL); ``got``, ``single`` and
-    ``plain`` hold the fields, ``sums`` is ``(batched, single, plain)``, one
-    entry a listed pair each. B4 has sums and no field (``got`` empty)."""
+    (fields within ``plain_tol``, 0 by default: bit for bit; sums within
+    SUMS_RTOL); ``got``, ``single`` and ``plain`` hold the fields, ``sums``
+    is ``(batched, single, plain)``, one entry a listed pair each. B4 has
+    sums and no field (``got`` empty)."""
     torch.cuda.synchronize()
     e_single = max((max_abs(a, b) for a, b in zip(got, single)), default=0.0)
     e_plain = max((max_abs(a, b) for a, b in zip(got, plain)), default=0.0)
     rec = {"phase": "kernels", "kernel": name, "shape": list(shape), "pairs": pairs, **info,
            "max_abs_err": e_plain, "max_abs_err_single": e_single}
-    ok = e_single == 0.0 and e_plain == 0.0
+    ok = e_single == 0.0 and e_plain <= plain_tol
     if sums is not None:
         got_s, single_s, plain_s = sums
         rec["sums_equal_single"] = all(torch.equal(a, b) for a, b in zip(got_s, single_s))
@@ -765,12 +782,13 @@ def check_pairs(err: dict, name: str, shape, pairs, got, single, plain, sums=Non
 
 
 def check_batch_kernels(err: dict, dev, gen: torch.Generator, nx: int, ny: int) -> None:
-    """B1 (k = 8 and 3), B2, B3 (warp, compose), B4, B5, B7 and U2 batched
-    on BATCH_KERNEL_PAIRS pairs of blob pairs shifted apart: every pair,
-    and a shuffled subset, each equal to its own single-pair launch and to
-    the plain version (B4's sums: bit for bit against the single launch,
-    within SUMS_RTOL of the plain version); B7 and U2 also leave the pairs
-    they are not given unwritten."""
+    """B1 (k = 8 and 3), B2, B3 (warp, compose), B4, B5, B7, B10 and U2
+    batched on BATCH_KERNEL_PAIRS pairs of blob pairs shifted apart: every
+    pair, and a shuffled subset, each equal to its own single-pair launch
+    and to the plain version (B4's sums: bit for bit against the single
+    launch, within SUMS_RTOL of the plain version; B10's field within
+    FIELD_TOL of it); B7, B10 and U2 also leave the pairs they are not
+    given unwritten."""
     count = len(BATCH_KERNEL_PAIRS[0])
     irefs, imovs, _ = batch_stack(dev, "blob", max(nx, ny), count, nx, ny)
     d = derivatives(irefs, imovs)
@@ -810,6 +828,31 @@ def check_batch_kernels(err: dict, dev, gen: torch.Generator, nx: int, ny: int) 
                     (list(sums), single, list(plain)))
         check_fluid_batch(err, shape, pairs, u, fluid_velocity(u), g)
         check_derive_batch(err, shape, pairs, irefs, imovs)
+        small = (torch.tanh(u) * 1.5).contiguous()
+        for name, field in (("small", small), ("oob", disp)):
+            check_onepass_batch(err, shape, pairs, imovs, irefs, field, u=name)
+
+
+def check_onepass_batch(err: dict, shape, pairs, iaux, irefs, est, **info) -> None:
+    """B10 by its pair axis on the listed pairs of a stack, into a
+    NaN-filled stack, by composition and by addition: each pair's field
+    and Logger sums bit-equal to its single launch's, the field within
+    FIELD_TOL of the plain version (as B10's own check) and the sums within
+    SUMS_RTOL, and every pair left out of the list still NaN (unwritten)."""
+    for addition in (False, True):
+        args = (iaux, irefs, est, *ONEPASS_ARGS, addition)
+        out, sums = thirion_onepass_batch(*args, pairs=pairs,
+                                          out=torch.full_like(est, float("nan")))
+        plain, plain_sums = thirion_onepass_batch_ref(*args, pairs=pairs)
+        singles = [thirion_onepass(iaux[p], irefs[p], est[p], *ONEPASS_ARGS, addition, True)
+                   for p in pairs]
+        check_pairs(err, "demons_onepass_batch", shape, pairs, [out[p] for p in pairs],
+                    [s[0] for s in singles], [plain[p] for p in pairs],
+                    (list(sums), [s[1] for s in singles], list(plain_sums)),
+                    plain_tol=FIELD_TOL, addition=addition, **info)
+        left = [p for p in range(est.shape[0]) if p not in pairs]
+        require(all(bool(out[p].isnan().all()) for p in left),
+                f"demons_onepass_batch {shape} pairs {pairs}: wrote a pair it was not given")
 
 
 def check_derive_batch(err: dict, shape, pairs, irefs, imovs) -> None:
@@ -977,7 +1020,7 @@ def drive_batch(dev, smi: str, name: str, method: Method, regparams, pair: str, 
         require(err <= tol, f"{name} {impl}: motion {err} px from register's (tol {tol})")
         require(tuple(res.motion.shape) == (count, 2, n, n)
                 and bool(torch.isfinite(res.motion).all()), f"{name} {impl}: motion")
-    if method == Method.FLUID:
+    if method in (Method.FLUID, Method.THIRIONS_DEMONS):
         require(_resolve_impl(cfg, "auto", (n, n)) == "vmap", f"{name}: auto is not vmap")
     return launches
 
@@ -2204,6 +2247,7 @@ def phase_times(dev) -> dict:
           "ms": median_ms(lambda: two(*step_args))})
     times.update(strip_times(dev, imov, g, u, v))
     times.update(batch_times(dev))
+    times.update(onepass_batch_times(dev))
     times.update(upsample_times(dev))
     times.update(downsample_times(dev))
     times.update(update_times(dev))
@@ -2334,6 +2378,38 @@ def update_times(dev) -> dict:
     return rows
 
 
+def onepass_batch_times(dev) -> dict:
+    """B10 by its pair axis at the 4DCT cell's finest level, ONEPASS_BATCH
+    (640 pairs of 512^2), every pair listed, with its Logger sums, as the
+    lockstep demons loop launches it: beside as many single launches, its
+    plain version (3 runs of one call: a loop of 640 plain iterations), its
+    bound (iaux, iref and u read, u' written: 24 B a pixel) and its
+    launches a call. Its row goes into the kernel table."""
+    b, n = ONEPASS_BATCH
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    irefs = torch.rand((b, n, n), generator=gen, device=dev)
+    iaux = (irefs + 0.05 * torch.randn((b, n, n), generator=gen, device=dev)).contiguous()
+    u = torch.tanh(torch.randn((b, 2, n, n), generator=gen, device=dev)) * 1.5
+    out = torch.empty_like(u)
+    pairs = _build.Pairs(range(b), b)
+    args = (iaux, irefs, u, *ONEPASS_ARGS, False)
+    kernels.reset_launches()
+    thirion_onepass_batch(*args, pairs, out)
+    launches = kernels.LAUNCHES["demons_onepass_batch"]
+    row = {"ms": median_ms(lambda: thirion_onepass_batch(*args, pairs, out)),
+           "plain_ms": median_ms(lambda: thirion_onepass_batch_ref(*args, pairs, out), runs=3,
+                                 warmup=1, batch=1),
+           **bound("demons_onepass_batch", b * n * n), "library_ms": None}
+    emit({"phase": "times", "kernel": "demons_onepass_batch", "shape": [b, n, n],
+          "kernelwidth": KW, "launches_a_call": launches, **row,
+          "singles_ms": median_ms(lambda: [thirion_onepass(iaux[p], irefs[p], u[p],
+                                                           *ONEPASS_ARGS, False, True)
+                                           for p in range(b)], runs=5, batch=1)})
+    del irefs, iaux, u, out
+    torch.cuda.empty_cache()
+    return {"demons_onepass_batch": row}
+
+
 def batch_times(dev) -> dict:
     """The batched kernels at the batch path's shape, BATCH pairs of
     N_BATCH^2, every pair listed: each against its plain version (a loop of
@@ -2381,6 +2457,11 @@ def batch_times(dev) -> dict:
         "derive_batch": (lambda: derive_batch(irefs, imovs, pairs, gout),
                          lambda: derive_batch_ref(irefs, imovs, pairs, gout),
                          lambda: [derive(irefs[p], imovs[p]) for p in every]),
+        "demons_onepass_batch": (
+            lambda: thirion_onepass_batch(imovs, irefs, v, *ONEPASS_ARGS, False, pairs, out),
+            lambda: thirion_onepass_batch_ref(imovs, irefs, v, *ONEPASS_ARGS, False, pairs, out),
+            lambda: [thirion_onepass(imovs[p], irefs[p], v[p], *ONEPASS_ARGS, False, True)
+                     for p in every]),
     }
     times = {}
     for name, (kern, plain, singles) in runs.items():

@@ -1,8 +1,11 @@
 // One Thirion demons iteration in one pass over device memory on Hopper
 // (sm_90a): warp -> gradient -> demons force -> Gaussian(sigma_fluid) ->
 // compose or add -> Gaussian(sigma_diffusion), with the reference Logger's
-// sums [sum |u_new - u|, sum |u|]. Two entry points:
+// sums [sum |u_new - u|, sum |u|]. Three entry points:
 //   B10 of2d_demons_onepass: the whole image;
+//   B10 of2d_demons_onepass_batch: the listed pairs of a stack in one
+//     launch (the lockstep demons driver, engine/registration.py), each
+//     pair's field at its place in the stack, its sums in list order;
 //   K5 of2d_demons_onepass_strip: one strip of the strip-parallel driver
 //     (parallel/spatial.py), pre-padded with its neighbours' halo rows,
 //     composing under the strips' displacement contract, no Logger sums.
@@ -46,6 +49,10 @@
 //   its fallback have no counterpart. Per-tile Logger partials are added in
 //   tile order by a second kernel (partials.cuh). A kernelwidth with no
 //   tile that fits is refused by the wrapper.
+// Pair axis: the persistent grid walks the listed pairs' tiles, pair by
+//   pair (onepass_walk over PairTiles), so a block's staging of its next
+//   tile may cross into the next pair; each tile is computed as in B10 and
+//   its partials land in its pair's rows, added per pair (partials.cuh).
 // Strips (kStrip, rows.cuh): the same stages on the strip's rows; a cell
 //   reads the padded strip and every gather takes its taps there, inside
 //   the contract only (bilinear.cuh::strip_taps). An output row reaches
@@ -128,14 +135,46 @@ __device__ __forceinline__ void onepass_tile(const float* __restrict__ iaux,
   }
 }
 
-template <int K, int TX, int TY, int kNBuf, bool kAddition, bool kStrip>
-__global__ void __launch_bounds__(demons_threads(TX, TY))
-demons_onepass_kernel(const float* __restrict__ iaux, const float* __restrict__ iref,
-                      const float* __restrict__ u, float* __restrict__ out,
-                      float* __restrict__ partials, Rows rows, int ny, int halo, int k,
-                      Taps taps_f, Taps taps_d, float a, float b) {
+// The items one launch walks (count() of them), item q being tile tile(q)
+// of the planes that start offset(q) floats a plane in. B10 and K5 walk one
+// image's tiles in tile order; B10's pair axis walks its listed pairs'
+// tiles, the pairs in list order, each pair's tiles in tile order. Item q's
+// Logger partials are row q of the launch's partials, so a pair's rows are
+// its single launch's rows, in the same order.
+struct ImageTiles {
+  __device__ __forceinline__ int count(const Rows& rows, int ny, int tx, int ty) const {
+    return demons_tiles(rows, ny, tx, ty);
+  }
+  __device__ __forceinline__ int tile(int q) const { return q; }
+  __device__ __forceinline__ size_t offset(int) const { return 0; }
+};
+
+struct PairTiles {
+  const int* __restrict__ pairs;
+  int n_pairs, tiles;
+  size_t plane;
+  __device__ __forceinline__ int count(const Rows&, int, int, int) const {
+    return n_pairs * tiles;
+  }
+  __device__ __forceinline__ int tile(int q) const { return q % tiles; }
+  __device__ __forceinline__ size_t offset(int q) const {
+    return static_cast<size_t>(pairs[q / tiles]) * plane;
+  }
+};
+
+// A persistent block's walk over the items of ``at``: block b takes items
+// b, b + gridDim.x, ..., each tile's inputs staged ahead with two buffers.
+// The body of B10, K5 and B10's pair axis.
+template <int K, int TX, int TY, int kNBuf, bool kAddition, bool kStrip, typename Items>
+__device__ __forceinline__ void onepass_walk(float* smem, const float* __restrict__ iaux,
+                                             const float* __restrict__ iref,
+                                             const float* __restrict__ u,
+                                             float* __restrict__ out,
+                                             float* __restrict__ partials, const Rows& rows,
+                                             int ny, int halo, int k, const Taps& taps_f,
+                                             const Taps& taps_d, float a, float b,
+                                             const Items& at) {
   constexpr int kN = demons_threads(TX, TY);
-  extern __shared__ float smem[];
   const int kk = K > 0 ? K : k;
   const DemonsGeo g(kk, TX, TY, 2 * (kk / 2) + 1);
   const int stage = 2 * g.ex * g.ey + g.mx * g.my;
@@ -160,57 +199,107 @@ demons_onepass_kernel(const float* __restrict__ iaux, const float* __restrict__ 
   const float den_f = tap_total<K>(taps_f, k) * tap_total<K>(taps_f, k);
   const float den_d = tap_total<K>(taps_d, k) * tap_total<K>(taps_d, k);
   const bool sums = partials != nullptr;
-  const int tiles_y = (ny + TY - 1) / TY, tiles = demons_tiles(rows, ny, TX, TY);
+  const int tiles_y = (ny + TY - 1) / TY, items = at.count(rows, ny, TX, TY);
 
-  // Start the copies of tile t's u (warp region) and iref (force region).
-  auto stage_tile = [&](int t, float* su, float* sr) {
+  // Start the copies of item q's u (warp region) and iref (force region).
+  auto stage_tile = [&](int q, float* su, float* sr) {
+    const int t = at.tile(q);
+    const size_t o = at.offset(q);
     const int i0 = rows.row0 + (t / tiles_y) * TX, j0 = (t % tiles_y) * TY;
-    stage_region<kN>(u, 2, rows, ny, Region{g.ex, g.ey, i0 - g.r, j0 - g.r}, su);
-    stage_region<kN>(iref, 1, rows, ny, Region{g.mx, g.my, i0 - g.r + 1, j0 - g.r + 1}, sr);
+    stage_region<kN>(u + 2 * o, 2, rows, ny, Region{g.ex, g.ey, i0 - g.r, j0 - g.r}, su);
+    stage_region<kN>(iref + o, 1, rows, ny, Region{g.mx, g.my, i0 - g.r + 1, j0 - g.r + 1}, sr);
     cp_async_commit();
   };
 
-  int t = blockIdx.x, buf = 0;
-  if (kNBuf == 2 && t < tiles) stage_tile(t, stage_buf[0], stage_buf[0] + 2 * g.ex * g.ey);
-  for (; t < tiles; t += gridDim.x, buf ^= 1) {
+  int q = blockIdx.x, buf = 0;
+  if (kNBuf == 2 && q < items) stage_tile(q, stage_buf[0], stage_buf[0] + 2 * g.ex * g.ey);
+  for (; q < items; q += gridDim.x, buf ^= 1) {
     if (kNBuf == 2) {
-      const int next = t + gridDim.x;
-      if (next < tiles) stage_tile(next, stage_buf[buf ^ 1], stage_buf[buf ^ 1] + 2 * g.ex * g.ey);
+      const int next = q + gridDim.x;
+      if (next < items) stage_tile(next, stage_buf[buf ^ 1], stage_buf[buf ^ 1] + 2 * g.ex * g.ey);
       else cp_async_commit();
       cp_async_wait<1>();
       s.su = stage_buf[buf];
       s.sr = stage_buf[buf] + 2 * g.ex * g.ey;
     } else {
-      stage_tile(t, s.su, s.sr);
+      stage_tile(q, s.su, s.sr);
       cp_async_wait<0>();
     }
     __syncthreads();
+    const int t = at.tile(q);
+    const size_t o = at.offset(q);
     const int i0 = rows.row0 + (t / tiles_y) * TX, j0 = (t % tiles_y) * TY;
     float dsum = 0.f, psum = 0.f;
     if (interior_tile(rows, ny, i0, j0, TX, TY, g.r)) {
       onepass_tile<K, TX, TY, kNBuf, true, kAddition, kStrip>(
-          iaux, u, out, rows, ny, halo, k, taps_f, taps_d, a, b, den_f, den_d, s, i0, j0, sums,
-          dsum, psum);
+          iaux + o, u + 2 * o, out + 2 * o, rows, ny, halo, k, taps_f, taps_d, a, b, den_f,
+          den_d, s, i0, j0, sums, dsum, psum);
     } else {
       onepass_tile<K, TX, TY, kNBuf, false, kAddition, kStrip>(
-          iaux, u, out, rows, ny, halo, k, taps_f, taps_d, a, b, den_f, den_d, s, i0, j0, sums,
-          dsum, psum);
+          iaux + o, u + 2 * o, out + 2 * o, rows, ny, halo, k, taps_f, taps_d, a, b, den_f,
+          den_d, s, i0, j0, sums, dsum, psum);
     }
-    if (sums) block_sum_pair<kN / 32>(dsum, psum, threadIdx.x, red, partials + 2 * t);
+    if (sums) block_sum_pair<kN / 32>(dsum, psum, threadIdx.x, red, partials + 2 * q);
     __syncthreads();
   }
 }
 
+// B10 and K5: one image's tiles.
+template <int K, int TX, int TY, int kNBuf, bool kAddition, bool kStrip>
+__global__ void __launch_bounds__(demons_threads(TX, TY))
+demons_onepass_kernel(const float* __restrict__ iaux, const float* __restrict__ iref,
+                      const float* __restrict__ u, float* __restrict__ out,
+                      float* __restrict__ partials, Rows rows, int ny, int halo, int k,
+                      Taps taps_f, Taps taps_d, float a, float b) {
+  extern __shared__ float smem[];
+  onepass_walk<K, TX, TY, kNBuf, kAddition, kStrip>(smem, iaux, iref, u, out, partials, rows,
+                                                    ny, halo, k, taps_f, taps_d, a, b,
+                                                    ImageTiles{});
+}
+
+// B10's pair axis: the tiles of the n_pairs pairs listed in ``pairs``, whole
+// images of a stack (iaux, iref one plane a pair, u and out two).
+template <int K, int TX, int TY, int kNBuf, bool kAddition>
+__global__ void __launch_bounds__(demons_threads(TX, TY))
+demons_onepass_batch_kernel(const float* __restrict__ iaux, const float* __restrict__ iref,
+                            const float* __restrict__ u, float* __restrict__ out,
+                            float* __restrict__ partials, Rows rows, int ny, int k,
+                            Taps taps_f, Taps taps_d, float a, float b,
+                            const int* __restrict__ pairs, int n_pairs) {
+  extern __shared__ float smem[];
+  onepass_walk<K, TX, TY, kNBuf, kAddition, false>(
+      smem, iaux, iref, u, out, partials, rows, ny, 0, k, taps_f, taps_d, a, b,
+      PairTiles{pairs, n_pairs, demons_tiles(rows, ny, TX, TY), rows.out_plane(ny)});
+}
+
+// Launch B10 or K5 (pairs == nullptr) or B10's pair axis over the listed
+// pairs on a persistent grid.
 template <int K, int TX, int TY, int kNBuf, bool kAddition, bool kStrip>
 int launch(const float* iaux, const float* iref, const float* u, float* out, float* partials,
            const Rows& rows, int ny, int halo, int k, const Taps& tf, const Taps& td, float a,
-           float b, cudaStream_t stream) {
+           float b, const int* pairs, int n_pairs, cudaStream_t stream) {
+  const int smem = onepass_smem_floats(k, TX, TY, kNBuf) * static_cast<int>(sizeof(float));
+  const int tiles = demons_tiles(rows, ny, TX, TY);
+  int blocks;
+  if constexpr (kStrip) {
+    (void)pairs;
+    (void)n_pairs;
+  } else {
+    if (pairs != nullptr) {
+      static GridCache cache;
+      auto* kernel = demons_onepass_batch_kernel<K, TX, TY, kNBuf, kAddition>;
+      const int rc = persistent_grid(kernel, demons_threads(TX, TY), smem, n_pairs * tiles,
+                                     &cache, &blocks);
+      if (rc != 0) return rc;
+      kernel<<<blocks, demons_threads(TX, TY), smem, stream>>>(iaux, iref, u, out, partials,
+                                                               rows, ny, k, tf, td, a, b, pairs,
+                                                               n_pairs);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   static GridCache cache;
   auto* kernel = demons_onepass_kernel<K, TX, TY, kNBuf, kAddition, kStrip>;
-  const int smem = onepass_smem_floats(k, TX, TY, kNBuf) * static_cast<int>(sizeof(float));
-  int blocks;
-  const int rc = persistent_grid(kernel, demons_threads(TX, TY), smem,
-                                 demons_tiles(rows, ny, TX, TY), &cache, &blocks);
+  const int rc = persistent_grid(kernel, demons_threads(TX, TY), smem, tiles, &cache, &blocks);
   if (rc != 0) return rc;
   kernel<<<blocks, demons_threads(TX, TY), smem, stream>>>(iaux, iref, u, out, partials, rows, ny,
                                                            halo, k, tf, td, a, b);
@@ -222,19 +311,21 @@ int launch(const float* iaux, const float* iref, const float* u, float* out, flo
 template <bool kAddition, bool kStrip>
 int dispatch(const float* iaux, const float* iref, const float* u, float* out, float* partials,
              const Rows& rows, int ny, int halo, int k, const Taps& tf, const Taps& td, float a,
-             float b, cudaStream_t stream) {
+             float b, const int* pairs, int n_pairs, cudaStream_t stream) {
   const DemonsPlan p = onepass_plan(k);
   if (p.tx == kTileX && p.ty == kTileY && p.nbuf == kTileBufs)
     return k == 5 ? launch<5, kTileX, kTileY, kTileBufs, kAddition, kStrip>(
-                        iaux, iref, u, out, partials, rows, ny, halo, k, tf, td, a, b, stream)
+                        iaux, iref, u, out, partials, rows, ny, halo, k, tf, td, a, b, pairs,
+                        n_pairs, stream)
                   : launch<0, kTileX, kTileY, kTileBufs, kAddition, kStrip>(
-                        iaux, iref, u, out, partials, rows, ny, halo, k, tf, td, a, b, stream);
+                        iaux, iref, u, out, partials, rows, ny, halo, k, tf, td, a, b, pairs,
+                        n_pairs, stream);
   if (p.tx == kSmallTile && p.nbuf == 2)
     return launch<0, kSmallTile, kSmallTile, 2, kAddition, kStrip>(
-        iaux, iref, u, out, partials, rows, ny, halo, k, tf, td, a, b, stream);
+        iaux, iref, u, out, partials, rows, ny, halo, k, tf, td, a, b, pairs, n_pairs, stream);
   if (p.tx == kSmallTile && p.nbuf == 1)
     return launch<0, kSmallTile, kSmallTile, 1, kAddition, kStrip>(
-        iaux, iref, u, out, partials, rows, ny, halo, k, tf, td, a, b, stream);
+        iaux, iref, u, out, partials, rows, ny, halo, k, tf, td, a, b, pairs, n_pairs, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -269,11 +360,39 @@ extern "C" int of2d_demons_onepass(const float* iaux, const float* iref, const f
     return static_cast<int>(cudaErrorInvalidValue);
   const Rows rows = whole_image(nx);
   const int rc = addition ? dispatch<true, false>(iaux, iref, u, out, partials, rows, ny, 0, k,
-                                                  tf, td, a, b, stream)
+                                                  tf, td, a, b, nullptr, 0, stream)
                           : dispatch<false, false>(iaux, iref, u, out, partials, rows, ny, 0, k,
-                                                   tf, td, a, b, stream);
+                                                   tf, td, a, b, nullptr, 0, stream);
   if (rc != 0 || partials == nullptr) return rc;
   return launch_sum_partials(partials, sums, of2d_demons_nblocks(nx, ny, k), 2, stream);
+}
+
+// B10's pair axis: iaux, iref [B, nx, ny], u [B, 2, nx, ny] -> for the
+// n_pairs pairs listed in pairs (device int32, each in [0, B), no repeats)
+// out [B, 2, nx, ny] at each pair's place (the other pairs are not written)
+// and sums [n_pairs, 2] in list order; partials [n_pairs, nblocks, 2]
+// (of2d_demons_nblocks) is scratch. Each pair's field and sums equal its
+// own of2d_demons_onepass's: its tiles are computed alike and its partials
+// added in the same order.
+extern "C" int of2d_demons_onepass_batch(const float* iaux, const float* iref, const float* u,
+                                         float* out, float* partials, float* sums,
+                                         const int* pairs, int n_pairs, int nx, int ny, int k,
+                                         const float* taps_f, const float* taps_d, float a,
+                                         float b, int addition, cudaStream_t stream) {
+  Taps tf, td;
+  if (!make_taps(taps_f, k, &tf) || !make_taps(taps_d, k, &td))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = of2d_demons_nblocks(nx, ny, k);
+  if (n_pairs < 1 || n_pairs > kMaxPairs || tiles < 1 ||
+      static_cast<long long>(n_pairs) * tiles > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Rows rows = whole_image(nx);
+  const int rc = addition ? dispatch<true, false>(iaux, iref, u, out, partials, rows, ny, 0, k,
+                                                  tf, td, a, b, pairs, n_pairs, stream)
+                          : dispatch<false, false>(iaux, iref, u, out, partials, rows, ny, 0, k,
+                                                   tf, td, a, b, pairs, n_pairs, stream);
+  if (rc != 0) return rc;
+  return launch_sum_partials(partials, sums, tiles, 2, stream, n_pairs);
 }
 
 // K5, one strip: iaux_pad, iref_pad [nxl + 2 pad, ny] and u_pad [2, nxl + 2
@@ -291,5 +410,5 @@ extern "C" int of2d_demons_onepass_strip(const float* iaux_pad, const float* ire
       !strip_ok(rows, 2 * (k / 2) + halo + 2))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<false, true>(iaux_pad, iref_pad, u_pad, out, nullptr, rows, ny, halo, k, tf,
-                               td, a, b, stream);
+                               td, a, b, nullptr, 0, stream);
 }

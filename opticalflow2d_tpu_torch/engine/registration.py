@@ -58,7 +58,11 @@ from opticalflow2d_tpu_torch.ops.resample import (
 from opticalflow2d_tpu_torch.ops.warp import compose, warp2d
 from opticalflow2d_tpu_torch.solvers.base import Derivatives, lssd_force
 from opticalflow2d_tpu_torch.solvers.curvature import make_curvature_step
-from opticalflow2d_tpu_torch.solvers.demons import make_demons_step
+from opticalflow2d_tpu_torch.solvers.demons import (
+    demons_route,
+    make_demons_batch_step,
+    make_demons_step,
+)
 from opticalflow2d_tpu_torch.solvers.elastic import elastic_step
 from opticalflow2d_tpu_torch.solvers.fluid import (
     make_fluid_batch_step,
@@ -475,6 +479,14 @@ def _fluid_chunk(b: int) -> int:
     return max(1, b // 4)
 
 
+def _print_pair_errors(ids, err, scale: int, it: int) -> None:
+    """The verbose line of iteration ``it`` of each pair of ``ids`` in a
+    lockstep loop that reads once an iteration."""
+    for p, e in zip(ids, err):
+        print(f"  [pair {p}] [scale {scale}] iteration {it + 1}: "
+              f"relative error {float(e):.6f}", flush=True)
+
+
 def _solve_level_fluid_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int):
     """``_solve_level_fluid`` on a stack of pairs ``u [B, 2, nx, ny]`` in
     lockstep, for the red-black SOR sweep at extents up to
@@ -547,9 +559,7 @@ def _solve_level_fluid_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale:
                     errs[ids, it] = err
                     its[ids] = it + 1
                     if cfg.verbose_stream:
-                        for p, e in zip(ids, err):
-                            print(f"  [pair {p}] [scale {scale}] iteration {it + 1}: "
-                                  f"relative error {float(e):.6f}", flush=True)
+                        _print_pair_errors(ids, err, scale, it)
                     again = ids[~conv & (s[:, 2] < threshold)]
                     going = ~conv & (it + 1 < niter)
                     e_at[ids[~going]], v_at[ids[~going]] = nxt, 1 - v
@@ -654,6 +664,76 @@ def _solve_level_demons(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     return u, traces
 
 
+def _solve_level_demons_batch(u, irefs, imovs, cfg: RegConfig, niter: int, scale: int):
+    """``_solve_level_demons`` on a stack of pairs ``u [B, 2, nx, ny]`` in
+    lockstep, for the ``"onepass"`` route (``lockstep_refusal``): Thirion
+    by composition or addition, diffeomorphic in the exp map's identity
+    regime. At each refinement one batched warp gives every pair's
+    ``iaux``; then each iteration launches B10's pair axis once for the
+    pairs still iterating (``make_demons_batch_step``) and makes one host
+    read of their Logger sums ``[n, 2]``, from which each pair's error and
+    stop are decided as ``_solve_level_demons`` decides them for one pair
+    (``engine.logger.iteration_stops``). A pair that stops leaves the
+    launches. So every pair's motion, errors and counts equal its own
+    ``register``'s bit for bit.
+
+    The estimates ping-pong between two stacks; the kernel writes only the
+    listed pairs, so a stopped pair's estimate stays in the stack last
+    written, and the stacks are gathered at the end through a buffer of
+    ``_fluid_chunk`` pairs, made whatever the data, so the loop's memory
+    does not depend on it. The level's motion ``u`` is the caller's and is
+    not written."""
+    b, _, nx, ny = u.shape
+    step = make_demons_batch_step(
+        cfg.sigma_i, cfg.sigma_x, cfg.sigma_diffusion, cfg.sigma_fluid, cfg.kernelwidth,
+        diffeomorphic=(cfg.method == Method.DIFFEOMORPHIC_DEMONS),
+        accumulation=cfg.accumulation, conv_flatwrap=cfg.compat.conv_flatwrap,
+        maxabs_bug=cfg.compat.maxabs_bug)
+    n_pix = np.float32(nx * ny)
+    tol = np.float32(cfg.convergence_tol)
+    scratch = torch.empty((_fluid_chunk(b), 2, nx, ny), dtype=u.dtype, device=u.device)
+    traces = []
+    for refine in range(cfg.nrefine):
+        with span("solve", scale=scale, refine=refine, nx=nx, ny=ny):
+            with span("derive"):
+                iaux = _gather(warp2d, warp2d_batch, imovs, u)
+            est = [torch.zeros_like(u), torch.empty_like(u)]
+            cur = 0  # the stack of the active pairs' estimates
+            errs = np.zeros((b, niter), np.float32)
+            its = np.zeros(b, np.int64)
+            e_at = np.zeros(b, np.int64)  # the stack of a stopped pair's estimate
+            active = _everyone(b) if niter > 0 else None
+            ids = np.arange(b)  # the active pairs
+            it = 0  # their common count
+            while active is not None:
+                nxt = 1 - cur
+                sums = step(est[cur], irefs, iaux, active, est[nxt])
+                with span("read", site="demons_batch", pairs=len(ids)):
+                    s = sums.cpu().numpy()  # the one host read per iteration
+                    err, conv = iteration_stops(s[:, 0] / n_pix, s[:, 1] / n_pix, it, niter,
+                                                tol)
+                    errs[ids, it] = err
+                    its[ids] = it + 1
+                    if cfg.verbose_stream:
+                        _print_pair_errors(ids, err, scale, it)
+                    going = ~conv & (it + 1 < niter)
+                    e_at[ids[~going]] = nxt
+                    ids = ids[going]
+                cur, it = nxt, it + 1
+                if len(ids) != len(active):
+                    active = Pairs(ids.tolist(), b) if len(ids) else None
+            inc = est[_gather_stacks(est, e_at, scratch)]
+            est = iaux = None
+            with span("compose"):
+                u = _gather(compose, compose_batch, u, inc)
+            check_level_field(scale, refine, inc, u)
+            del inc  # not held through the next refinement
+            traces.append(LevelTrace(scale, torch.from_numpy(errs), torch.from_numpy(its),
+                                     torch.zeros(b, dtype=torch.int64),
+                                     torch.zeros(b, dtype=torch.int64)))
+    return u, traces
+
+
 def _solve_level(u, iref, imov, cfg: RegConfig, niter: int, scale: int):
     if cfg.method == Method.FLUID:
         return _solve_level_fluid(u, iref, imov, cfg, niter, scale)
@@ -739,21 +819,29 @@ def _each(fn, stack: torch.Tensor, *args) -> torch.Tensor:
     return torch.stack([fn(x, *args) for x in stack])
 
 
-# The families the lockstep batch driver runs.
-_LOCKSTEP = (Method.DIFFUSION, Method.CURVATURE, Method.ELASTIC, Method.FLUID)
-
-
 def lockstep_refusal(cfg: RegConfig, dims=None) -> str | None:
     """Why the lockstep batch driver does not run ``cfg`` on images of
-    ``dims`` (``None``: any size), or None where it does. It runs
-    diffusion, curvature, elastic and fluid; fluid with the red-black SOR
-    sweep (B7's pair axis) and only where no level's larger extent exceeds
-    ``_DERIV_BARRIER_MIN_EXTENT``: past it a level takes the two-pass
-    step (B8 + B9), which has no pair axis. Demons have no lockstep
-    driver (ROADMAP A15 part 2)."""
-    if cfg.method not in _LOCKSTEP:
-        return (f"the lockstep batch driver runs diffusion, curvature, elastic and fluid, not "
-                f"{cfg.method.name}: its demons driver is ROADMAP A15 part 2")
+    ``dims`` (``None``: any size), or None where it does. It runs every
+    family: diffusion, curvature and elastic always; fluid with the
+    red-black SOR sweep (B7's pair axis) and only where no level's larger
+    extent exceeds ``_DERIV_BARRIER_MIN_EXTENT``: past it a level takes
+    the two-pass step (B8 + B9), which has no pair axis; demons on the
+    ``"onepass"`` route (B10's pair axis): Thirion, and diffeomorphic where
+    the exp map is the identity. The ``"two_kernel"`` route (B11, the exp
+    map, B12) and the op chain have no pair axis."""
+    if cfg.method in (Method.THIRIONS_DEMONS, Method.DIFFEOMORPHIC_DEMONS):
+        route = demons_route(cfg.sigma_i, cfg.sigma_x, cfg.kernelwidth,
+                             cfg.method == Method.DIFFEOMORPHIC_DEMONS, cfg.compat.conv_flatwrap,
+                             cfg.compat.maxabs_bug)
+        if route == "two_kernel":
+            return ("the lockstep demons driver runs the onepass route (B10's pair axis): "
+                    "diffeomorphic demons outside the exp map's identity regime take B11, the "
+                    "exp map and B12, which have no pair axis (ROADMAP A15 part 2)")
+        if route == "op_chain":
+            return ("the lockstep demons driver runs the onepass route (B10's pair axis): the "
+                    "op chain (conv_flatwrap, or a kernelwidth whose tile does not fit B10) has "
+                    "no pair axis (ROADMAP A15 part 2)")
+        return None
     if cfg.method != Method.FLUID:
         return None
     if cfg.navier_lame_solver != "sor" or cfg.sor_ordering != "redblack":
@@ -775,11 +863,12 @@ def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
     on its own, in the level loop ``register`` runs on a stack of one
     (``_solve_level_blocked``) or, for fluid, in the lockstep fluid loop
     (``_solve_level_fluid_batch``: one host read an iteration for all the
-    pairs still iterating), so every pair's result equals its own
-    ``register``'s bit for bit. Diffusion, curvature, elastic and fluid;
-    fluid with the red-black SOR sweep up to an extent of
-    ``_DERIV_BARRIER_MIN_EXTENT``, past which ``register_batch`` maps
-    (``lockstep_refusal``)."""
+    pairs still iterating) and, for demons, in the lockstep demons loop
+    (``_solve_level_demons_batch``: likewise), so every pair's result
+    equals its own ``register``'s bit for bit. Diffusion, curvature,
+    elastic, fluid and demons; fluid with the red-black SOR sweep up to an
+    extent of ``_DERIV_BARRIER_MIN_EXTENT``, demons on the onepass route,
+    ``register_batch`` mapping the rest (``lockstep_refusal``)."""
     why = lockstep_refusal(cfg, tuple(irefs.shape[1:]))
     if why is not None:
         raise NotImplementedError(why)
@@ -813,6 +902,9 @@ def _register_batch_impl(irefs, imovs, cfg: RegConfig, initial_motions=None):
         if cfg.method == Method.FLUID:
             u_s, level_traces = _solve_level_fluid_batch(u_s, pyr_ref[s], pyr_mov[s], cfg,
                                                          int(cfg.niter[s]), s)
+        elif cfg.method in (Method.THIRIONS_DEMONS, Method.DIFFEOMORPHIC_DEMONS):
+            u_s, level_traces = _solve_level_demons_batch(u_s, pyr_ref[s], pyr_mov[s], cfg,
+                                                          int(cfg.niter[s]), s)
         else:
             u_s, level_traces = _solve_level_variational(
                 u_s, pyr_ref[s], pyr_mov[s], cfg, int(cfg.niter[s]), s, batch=True)

@@ -58,6 +58,8 @@ _SIGNATURES = {
     "of2d_demons_onepass_smem_bytes": ((_I,), _I),
     "of2d_demons_onepass": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _FA, _FA, _F, _F, _I, _P),
                             _I),
+    "of2d_demons_onepass_batch": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _FA, _FA, _F, _F,
+                                   _I, _P), _I),
     "of2d_demons_correspondence_smem_bytes": ((_I,), _I),
     "of2d_demons_correspondence": ((_P, _P, _P, _P, _I, _I, _I, _FA, _F, _F, _P), _I),
     "of2d_compose_smooth_smem_bytes": ((_I,), _I),

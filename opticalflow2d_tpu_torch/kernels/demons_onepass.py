@@ -18,6 +18,10 @@ to the op chain before any launch. The Logger partials have one row a tile
 (``onepass_tiles``). The gathers are exact for any displacement: no halo
 bound, no fallback.
 
+``thirion_onepass_batch`` is B10 on the listed pairs of a stack in one
+launch, for the lockstep demons driver: each pair's field and sums are its
+single launch's.
+
 ``thirion_onepass_strip`` (K5) is the same iteration, by composition and
 without the Logger sums, on one strip of the strip-parallel driver
 (``parallel.spatial``): the inputs carry ``pad >= onepass_strip_pad(halo,
@@ -125,6 +129,63 @@ def thirion_onepass(iaux: torch.Tensor, iref: torch.Tensor, u: torch.Tensor,
         _build.f32(sigma_i * sigma_i), _build.f32(sigma_x * sigma_x), int(addition))
     kernels.LAUNCHES["demons_onepass"] += 1
     return (out, sums) if with_errors else out
+
+
+def thirion_onepass_batch_ref(iaux: torch.Tensor, iref: torch.Tensor, u: torch.Tensor,
+                              sigma_i: float, sigma_x: float, sigma_fluid: float,
+                              sigma_diffusion: float, kernelwidth: int, addition: bool = False,
+                              pairs=None, out: torch.Tensor | None = None):
+    """Plain PyTorch version of B10's pair axis: ``thirion_onepass_ref`` on
+    each listed pair, its field into ``out[p]``; the sums ``[n_pairs, 2]``
+    in list order."""
+    pairs = _build.as_pairs(pairs, u.shape[0])
+    out = torch.zeros_like(u) if out is None else out
+    sums = []
+    for p in pairs:
+        out[p], s = thirion_onepass_ref(iaux[p], iref[p], u[p], sigma_i, sigma_x, sigma_fluid,
+                                        sigma_diffusion, kernelwidth, addition, True)
+        sums.append(s)
+    return out, torch.stack(sums)
+
+
+def thirion_onepass_batch(iaux: torch.Tensor, iref: torch.Tensor, u: torch.Tensor,
+                          sigma_i: float, sigma_x: float, sigma_fluid: float,
+                          sigma_diffusion: float, kernelwidth: int, addition: bool = False,
+                          pairs=None, out: torch.Tensor | None = None):
+    """``thirion_onepass`` with its sums on the listed pairs of a stack in
+    one launch: ``iaux``, ``iref [B, nx, ny]``, ``u [B, 2, nx, ny]``,
+    ``pairs`` distinct indices in ``[0, B)`` (or ``_build.Pairs``). Writes
+    pair ``p``'s ``u_new`` into ``out[p]`` and leaves the other pairs of
+    ``out`` as they are (zeros when it is None); returns ``(out, sums
+    [n_pairs, 2])``, the sums in the order of ``pairs``. Each pair's field
+    and sums equal its own ``thirion_onepass`` call's. The plain version on
+    the CPU, B10's pair axis on CUDA."""
+    if _build.on_cpu(iaux, iref, u, *(() if out is None else (out,))):
+        return thirion_onepass_batch_ref(iaux, iref, u, sigma_i, sigma_x, sigma_fluid,
+                                         sigma_diffusion, kernelwidth, addition, pairs, out)
+    if u.dim() != 4 or u.shape[1] != 2:
+        raise ValueError(f"u must be [B, 2, nx, ny], got {tuple(u.shape)}")
+    b = u.shape[0]
+    nx, ny = check_demons_inputs(u[0], kernelwidth, onepass_smem_bytes(kernelwidth))
+    _build.check_cuda("u", u, (b, 2, nx, ny), u.device)
+    _build.check_cuda("iaux", iaux, (b, nx, ny), u.device)
+    _build.check_cuda("iref", iref, (b, nx, ny), u.device)
+    pairs = _build.as_pairs(pairs, b)
+    if out is None:
+        out = torch.zeros_like(u)
+    _build.check_out(out, u, iaux, iref, u)
+    n = len(pairs)
+    partials = torch.empty((n, onepass_tiles(nx, ny, kernelwidth), 2), dtype=u.dtype,
+                           device=u.device)
+    sums = torch.empty((n, 2), dtype=u.dtype, device=u.device)
+    _build.launch(
+        "of2d_demons_onepass_batch", u.device, iaux.data_ptr(), iref.data_ptr(), u.data_ptr(),
+        out.data_ptr(), partials.data_ptr(), sums.data_ptr(), pairs.on(u.device).data_ptr(), n,
+        nx, ny, kernelwidth, taps_array(sigma_fluid, kernelwidth),
+        taps_array(sigma_diffusion, kernelwidth), _build.f32(sigma_i * sigma_i),
+        _build.f32(sigma_x * sigma_x), int(addition))
+    kernels.LAUNCHES["demons_onepass_batch"] += 1
+    return out, sums
 
 
 def onepass_strip_pad(halo: int, kernelwidth: int) -> int:

@@ -12,18 +12,23 @@ Two ways to run a batch, as in the JAX package:
   Logger sums in one host read a block. Fluid has its own lockstep loop
   (``_solve_level_fluid_batch``): B7 and B5 once an iteration for all the
   pairs still iterating, one host read an iteration of their metrics, and
-  the pairs that regrid at an iteration regridded together. Each pair
-  keeps its own stop, counts and regrids, and leaves the launches once it
-  stops. Where JAX's vmap executes both branches of every ``lax.cond``
+  the pairs that regrid at an iteration regridded together. Demons have
+  theirs too (``_solve_level_demons_batch``): one warp a refinement, then
+  B10's pair axis once an iteration for the pairs still iterating and one
+  host read of their Logger sums, for Thirion (by composition or
+  addition) and diffeomorphic demons in the exp map's identity regime.
+  Each pair keeps its own stop, counts and regrids, and leaves the
+  launches once it stops. Where JAX's vmap executes both branches of every ``lax.cond``
   under a mask, a stopped pair here costs nothing.
 - ``impl="map"``: each pair through the single-pair ``_register_impl`` in
   turn, as ``lax.map`` does; every family.
 
-Demons take map: their loops branch on a host read an iteration (the exp
-map's squarings), and their lockstep driver is ROADMAP A15 part 2. So does
-a fluid configuration the lockstep fluid loop does not run
-(``lockstep_refusal``: another solver than the red-black SOR sweep, or a
-level past an extent of 8192, whose two-pass step has no pair axis).
+What the lockstep loops do not run takes map (``lockstep_refusal``):
+diffeomorphic demons outside the exp map's identity regime (B11, the exp
+map and B12 have no pair axis, ROADMAP A15 part 2), demons on the op chain
+(``conv_flatwrap``, or a kernelwidth whose tile does not fit B10), and a
+fluid configuration with another solver than the red-black SOR sweep or a
+level past an extent of 8192, whose two-pass step has no pair axis.
 Either way every pair's result equals its own ``register``'s, bit for
 bit.
 
@@ -56,15 +61,18 @@ _IMPLS = ("vmap", "map")
 def _resolve_impl(cfg: RegConfig, impl: str, dims=None) -> str:
     """Resolve ``impl="auto"`` for images of ``dims`` (``None``: any size):
     vmap where the lockstep driver runs the configuration
-    (``lockstep_refusal``: diffusion, curvature, elastic, and fluid with
-    the red-black SOR sweep up to an extent of 8192), map otherwise
-    (demons, other fluid configurations). This departs from the JAX
+    (``lockstep_refusal``: diffusion, curvature, elastic, fluid with the
+    red-black SOR sweep up to an extent of 8192, Thirion demons, and
+    diffeomorphic demons in the exp map's identity regime, each demons
+    configuration on B10's onepass route), map otherwise (the two-kernel
+    and op-chain demons routes, other fluid configurations). This departs
+    from the JAX
     package's rule, which maps fluid and demons for a config with
     ``warp_halo > 0`` and no Pallas because its vmap runs every
     ``lax.cond``'s both branches and every pair to the slowest one's stop:
     here a stopped pair leaves the launches and a regrid runs only for the
-    pairs that take it, so fluid loses nothing in lockstep and saves a
-    host read an iteration per pair. The port has neither of JAX's knobs
+    pairs that take it, so fluid and demons lose nothing in lockstep and
+    save a host read an iteration per pair. The port has neither of JAX's knobs
     (its gather is exact and its kernels run under the lockstep driver),
     so the configuration alone decides."""
     if impl != "auto":
@@ -125,10 +133,12 @@ def register_batch(irefs, imovs, cfg: RegConfig, mesh: Optional[Mesh] = None,
         must be divisible by their number), each row's pairs run on the
         row's first device.
       impl: ``"vmap"`` (the lockstep driver: diffusion, curvature,
-        elastic, and fluid with the red-black SOR sweep up to an extent
-        of 8192), ``"map"`` (each pair in turn; every family) or
-        ``"auto"`` (``_resolve_impl``: vmap where the lockstep driver
-        runs, map for demons and other fluid configurations).
+        elastic, fluid with the red-black SOR sweep up to an extent of
+        8192, and demons on B10's onepass route: Thirion, and
+        diffeomorphic in the exp map's identity regime), ``"map"`` (each
+        pair in turn; every family) or ``"auto"`` (``_resolve_impl``:
+        vmap where the lockstep driver runs, map for the other demons
+        routes and other fluid configurations).
       initial_motions: optional ``[B, 2, nx, ny]`` warm-start fields (for
         example the previous frames' solutions of a sequence).
       device: where the batch runs without a mesh; ``None`` means CUDA

@@ -22,6 +22,9 @@ The route is chosen from the configuration alone, before any launch:
   then B4 for the Logger sums.
 
 On the CPU every kernel runs its plain version, along the same route.
+``make_demons_batch_step`` is the ``"onepass"`` route on the listed pairs
+of a stack (B10's pair axis), for the lockstep demons driver; the other two
+routes have no pair axis.
 """
 
 from __future__ import annotations
@@ -30,7 +33,11 @@ import torch
 
 from opticalflow2d_tpu_torch.config import MotionAccumulation
 from opticalflow2d_tpu_torch.kernels.demons_fused import compose_smooth, demons_correspondence
-from opticalflow2d_tpu_torch.kernels.demons_onepass import thirion_onepass, tile_fits
+from opticalflow2d_tpu_torch.kernels.demons_onepass import (
+    thirion_onepass,
+    thirion_onepass_batch,
+    tile_fits,
+)
 from opticalflow2d_tpu_torch.kernels.logger_norms import logger_norms
 from opticalflow2d_tpu_torch.ops.conv import gaussian_smooth
 from opticalflow2d_tpu_torch.ops.warp import compose, expmap, static_expmap_nsq, warp2d
@@ -115,3 +122,40 @@ def make_demons_step(
         return (u_new, logger_sums(u_new, u)) if with_errors else u_new
 
     return {"onepass": onepass, "two_kernel": two_kernel, "op_chain": op_chain}[route]
+
+
+def make_demons_batch_step(
+    sigma_i: float,
+    sigma_x: float,
+    sigma_diffusion: float,
+    sigma_fluid: float,
+    kernelwidth: int,
+    diffeomorphic: bool,
+    accumulation: MotionAccumulation = MotionAccumulation.COMPOSITION,
+    conv_flatwrap: bool = False,
+    maxabs_bug: bool = False,
+):
+    """Build the ``"onepass"`` demons step on the listed pairs of a stack,
+    ``(u, irefs, iaux, pairs, out) -> sums``: ``u [B, 2, nx, ny]``,
+    ``irefs`` and the refinement-warped moving images ``iaux [B, nx, ny]``,
+    ``pairs`` a ``Pairs`` of the stack. It writes each listed pair's new
+    motion into ``out[p]``, leaves the other pairs as they are, and returns
+    their Logger sums ``[n_pairs, 2]`` in list order: one launch of B10's
+    pair axis, so each pair's motion and sums equal ``make_demons_step``'s
+    (``with_errors``) bit for bit. Thirion by composition or addition, and
+    diffeomorphic in the exp map's identity regime; the other routes raise
+    (``demons_route``)."""
+    route = demons_route(sigma_i, sigma_x, kernelwidth, diffeomorphic, conv_flatwrap,
+                         maxabs_bug)
+    if route != "onepass":
+        raise ValueError(f"the demons batch step runs the onepass route (B10's pair axis), "
+                         f"not {route!r}")
+    addition = not diffeomorphic and accumulation == MotionAccumulation.ADDITION
+
+    def step(u: torch.Tensor, irefs: torch.Tensor, iaux: torch.Tensor, pairs,
+             out: torch.Tensor) -> torch.Tensor:
+        _, sums = thirion_onepass_batch(iaux, irefs, u, sigma_i, sigma_x, sigma_fluid,
+                                        sigma_diffusion, kernelwidth, addition, pairs, out)
+        return sums
+
+    return step

@@ -1,6 +1,6 @@
 """Compare the SASS of kernel sources between two checkouts.
 
-    python3 probes/sass_compare.py --parent DIR [--out FILE] warp_gather.cu ...
+    python3 probes/sass_compare.py --parent DIR [--out FILE] [--functions] warp_gather.cu ...
 
 Compiles each named ``csrc`` source of this checkout and of ``--parent``
 (unpacked with ``git archive``) with the library's own flags
@@ -8,8 +8,12 @@ Compiles each named ``csrc`` source of this checkout and of ``--parent``
 ``cuobjdump -sass`` and compares the dumps line by line, leaving out the
 hash that names each file's anonymous namespace. Prints one JSON line: for
 each source, whether the two dumps are equal, their line counts and kernel
-counts, and the first differing lines. Needs ``nvcc`` and ``cuobjdump``,
-about two minutes.
+counts, and the first differing lines. With ``--functions`` it also
+compares function by function, each of the parent's kernels against the
+one of the same (mangled) name here, for a source that gained kernels
+beside ones it kept: the exit status then says whether every one of the
+parent's kernels is there with the same SASS. Needs ``nvcc`` and
+``cuobjdump``, about two minutes.
 """
 import argparse
 import json
@@ -34,10 +38,24 @@ def sass(nvcc: str, cuobjdump: str, flags, src: Path, out: Path) -> list:
             for line in text.splitlines() if str(out) not in line]
 
 
+def functions(dump: list) -> dict:
+    """The dump's kernels: each ``Function :`` name and the lines up to the
+    next one."""
+    out, name = {}, None
+    for line in dump:
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", required=True)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--functions", action="store_true")
     parser.add_argument("sources", nargs="+")
     args = parser.parse_args(argv)
     from opticalflow2d_tpu_torch.kernels import _build
@@ -54,12 +72,22 @@ def main(argv=None) -> int:
             result[name] = {"equal": dumps[0] == dumps[1], "lines": [len(d) for d in dumps],
                             "kernels": [sum("Function :" in ln for ln in d) for d in dumps],
                             "first_differences": diff[:5]}
+            if args.functions:
+                old, new = functions(dumps[0]), functions(dumps[1])
+                same = [f for f in old if new.get(f) == old[f]]
+                result[name].update(
+                    parent_kernels_equal=len(same) == len(old),
+                    kernels_equal=len(same),
+                    kernels_differ=[f for f in old if f in new and f not in same],
+                    kernels_gone=[f for f in old if f not in new],
+                    kernels_new=[f for f in new if f not in old])
     text = json.dumps({"sass": result})
     print(text, flush=True)
     if args.out:
         with open(args.out, "a") as f:
             f.write(text + "\n")
-    return 0 if all(r["equal"] for r in result.values()) else 1
+    key = "parent_kernels_equal" if args.functions else "equal"
+    return 0 if all(r[key] for r in result.values()) else 1
 
 
 if __name__ == "__main__":

@@ -140,16 +140,28 @@ def test_fluid_auto_runs_map_and_matches_jax():
         assert_close(got.motion, want.motion, MOTION_TOL)
 
 
-@pytest.mark.parametrize("method,impl", [
-    (T.Method.DIFFUSION, "vmap"), (T.Method.CURVATURE, "vmap"), (T.Method.ELASTIC, "vmap"),
-    (T.Method.FLUID, "map"), (T.Method.THIRIONS_DEMONS, "map"),
-    (T.Method.DIFFEOMORPHIC_DEMONS, "map"),
-])
-def test_auto_resolves_by_method(method, impl):
+# Demons configurations by route: Thirion's onepass route runs in lockstep,
+# diffeomorphic demons outside the exp map's identity regime (sigma_x /
+# (2 sigma_i) 2) take B11, the exp map and B12, which have no pair axis.
+TWO_KERNEL = dict(sigma_i=0.25, sigma_x=1.0)
+
+
+AUTO_CASES = [
+    (T.Method.DIFFUSION, "vmap", {}), (T.Method.CURVATURE, "vmap", {}),
+    (T.Method.ELASTIC, "vmap", {}), (T.Method.FLUID, "map", {}),
+    (T.Method.THIRIONS_DEMONS, "vmap", {}), (T.Method.DIFFEOMORPHIC_DEMONS, "map", TWO_KERNEL),
+]
+
+
+@pytest.mark.parametrize("method,impl,overrides", AUTO_CASES,
+                         ids=[f"{int(m)}-{impl}" for m, impl, _ in AUTO_CASES])
+def test_auto_resolves_by_method(method, impl, overrides):
     """At 16384^2: fluid maps there, since its levels past 8192 take the
     two-pass step, which has no pair axis (below it fluid runs in lockstep,
-    ``test_torch_fluid_batch.py``)."""
-    cfg = T.RegConfig(method=method, niter=(5,))
+    ``test_torch_fluid_batch.py``); Thirion demons run in lockstep at any
+    size (B10's pair axis), and diffeomorphic demons on the two-kernel
+    route map (``test_torch_demons_batch.py``)."""
+    cfg = T.RegConfig(method=method, niter=(5,), **overrides)
     assert _resolve_impl(cfg, "auto", (16384, 16384)) == impl
     assert _resolve_impl(cfg, "map") == "map" and _resolve_impl(cfg, "vmap") == "vmap"
 
@@ -218,9 +230,13 @@ def test_refuses_bad_arguments(stacks, case):
 @pytest.mark.parametrize("method", [T.Method.FLUID, T.Method.THIRIONS_DEMONS,
                                     T.Method.DIFFEOMORPHIC_DEMONS])
 def test_vmap_of_fluid_and_demons_is_not_ported(stacks, method):
-    """Demons have no lockstep driver; fluid has one for the red-black SOR
-    sweep only, so the lexicographic one is refused."""
-    extra = dict(sor_ordering="lexicographic") if method == T.Method.FLUID else {}
+    """The lockstep loops run fluid with the red-black SOR sweep and demons
+    on B10's onepass route only, so the lexicographic sweep, Thirion on the
+    op chain (``conv_flatwrap``) and diffeomorphic demons on the two-kernel
+    route are refused."""
+    extra = {T.Method.FLUID: dict(sor_ordering="lexicographic"),
+             T.Method.THIRIONS_DEMONS: dict(compat=T.CompatFlags(conv_flatwrap=True)),
+             T.Method.DIFFEOMORPHIC_DEMONS: TWO_KERNEL}[method]
     cfg = T.RegConfig(method=method, niter=(5,), **extra)
     with pytest.raises(NotImplementedError, match="impl='map' or 'auto' runs it"):
         register_batch(*stacks, cfg, impl="vmap", device="cpu")

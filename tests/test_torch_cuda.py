@@ -1258,3 +1258,114 @@ def test_register_batch_fluid_gpu_equals_register(cuda):
     assert launches["fluid_metrics_batch"] == sum(int(t.iterations.max()) for t in vm.traces)
     assert sum(int(t.regrids.sum()) for t in vm.traces) > 0
     assert len({tuple(int(t.iterations[i]) for t in vm.traces) for i in range(4)}) > 1
+
+
+# --- B10's pair axis and the lockstep demons driver ------------------------------
+
+def _demons_stack(shape, dev, n=3, scale=1.5):
+    """``n`` demons inputs of ``_demons_inputs`` stacked, each from its own
+    seed: ``iaux``, ``iref [n, nx, ny]`` and ``u [n, 2, nx, ny]``."""
+    parts = []
+    for s in range(n):
+        iref, imov, _, u = _inputs(*shape, dev, seed=s)
+        parts.append((torch.roll(imov, (s, -s), (0, 1)), iref, (torch.tanh(u) * scale)))
+    return tuple(torch.stack([p[i] for p in parts]).contiguous() for i in range(3))
+
+
+def _onepass_pairs_case(iaux, iref, u, pairs, kw, addition):
+    """B10's pair axis on the listed pairs into a NaN-filled stack, one
+    launch a call: each pair's field and Logger sums equal its own single
+    launch bit for bit, the pairs left out still NaN."""
+    args = (1.0, 0.25, 2.0, 1.5, kw, addition)
+    fill = torch.full_like(u, float("nan"))
+    kernels.reset_launches()
+    out, sums = demons_onepass.thirion_onepass_batch(iaux, iref, u, *args, pairs=pairs, out=fill)
+    assert kernels.LAUNCHES["demons_onepass_batch"] == 1
+    assert kernels.LAUNCHES["demons_onepass"] == 0
+    torch.cuda.synchronize()
+    for z, p in enumerate(pairs):
+        one, one_sums = demons_onepass.thirion_onepass(iaux[p], iref[p], u[p], *args,
+                                                       with_errors=True)
+        assert torch.equal(out[p], one), (p, _max_abs(out[p], one))
+        assert torch.equal(sums[z], one_sums), (p, sums[z], one_sums)
+    left = [p for p in range(u.shape[0]) if p not in set(pairs)]
+    assert all(bool(out[p].isnan().all()) for p in left)
+    return out, sums
+
+
+@pytest.mark.parametrize("shape,kw,scale", DEMONS_CASES)
+@pytest.mark.parametrize("pairs", [[0, 1, 2], [2, 0], [1]])
+def test_batched_onepass_equals_single_launches(cuda, shape, kw, scale, pairs):
+    """Every plan (kw 5 with its taps known, 3, 7, 11 and 43), odd and
+    all-border shapes, fields of +-30 px: bit for bit against the single
+    launches and within the plain version's tolerance, by composition and
+    by addition."""
+    iaux, iref, u = _demons_stack(shape, cuda, scale=scale)
+    for addition in (False, True):
+        out, sums = _onepass_pairs_case(iaux, iref, u, pairs, kw, addition)
+        for z, p in enumerate(pairs):
+            want, want_sums = demons_onepass.thirion_onepass_ref(
+                iaux[p], iref[p], u[p], 1.0, 0.25, 2.0, 1.5, kw, addition, True)
+            assert _max_abs(out[p], want) <= FIELD_TOL
+            np.testing.assert_allclose(npy(sums[z]), npy(want_sums), rtol=SUMS_RTOL)
+
+
+def test_batched_onepass_at_the_4dct_size(cuda):
+    """640 pairs of 512^2, the 4DCT cell's finest level, every pair listed
+    and 3 in 4 of them shuffled: each pair's field and sums equal its own
+    single launch's bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    b, n = 640, 512
+    iref = torch.rand((b, n, n), generator=gen, device=cuda)
+    iaux = (iref + 0.05 * torch.randn((b, n, n), generator=gen, device=cuda)).contiguous()
+    u = torch.randn((b, 2, n, n), generator=gen, device=cuda) * 2.0
+    listed = [p for p in np.random.default_rng(24).permutation(b).tolist() if p % 4]
+    for pairs in (list(range(b)), listed):
+        _onepass_pairs_case(iaux, iref, u, pairs, 5, False)
+
+
+def test_batched_onepass_refuses_what_it_does_not_take(cuda):
+    iaux, iref, u = _demons_stack((64, 48), cuda)
+    args = (1.0, 0.25, 2.0, 1.5, 5)
+    with pytest.raises(ValueError, match="share memory"):
+        demons_onepass.thirion_onepass_batch(iaux, iref, u, *args, pairs=[0], out=u)
+    with pytest.raises(ValueError, match="shape"):
+        demons_onepass.thirion_onepass_batch(iaux[:2], iref, u, *args, pairs=[0])
+    with pytest.raises(ValueError, match="distinct"):
+        demons_onepass.thirion_onepass_batch(iaux, iref, u, *args, pairs=[0, 0])
+
+
+@pytest.mark.parametrize("method,extra", [
+    (Method.THIRIONS_DEMONS, {}),
+    (Method.THIRIONS_DEMONS, dict(accumulation=1)),
+    (Method.DIFFEOMORPHIC_DEMONS, {}),
+])
+def test_register_batch_demons_gpu_equals_register(cuda, method, extra):
+    """The lockstep demons driver on the card against each pair's own
+    ``register`` there, bit for bit with equal counts and Logger errors:
+    B10 by its pair axis, one read an iteration; and map likewise. The
+    pairs stop apart (a Logger tolerance of 0.05)."""
+    from opticalflow2d_tpu_torch.config import MotionAccumulation
+    from opticalflow2d_tpu_torch.parallel import register_batch
+    irefs, imovs, _, _ = _batch_stack((96, 64), cuda, n=4)
+    imovs = torch.stack([torch.roll(imovs[i], (i, -i), (0, 1)) for i in range(4)])
+    if "accumulation" in extra:
+        extra = dict(accumulation=MotionAccumulation(extra["accumulation"]))
+    cfg = RegConfig(method=method, niter=(40, 40), nscales=1, nrefine=2, convergence_tol=0.05,
+                    **extra)
+    kernels.reset_launches()
+    vm = register_batch(irefs, imovs, cfg, impl="vmap")
+    launches = dict(kernels.LAUNCHES)
+    au = register_batch(irefs, imovs, cfg, impl="auto")
+    mp = register_batch(irefs, imovs, cfg, impl="map")
+    for i in range(4):
+        one = register(irefs[i], imovs[i], cfg)
+        for res in (vm, au, mp):
+            assert [int(t.iterations[i]) for t in res.traces] == [
+                t.iterations for t in one.traces]
+            assert all(torch.equal(a.errors[i], b.errors) for a, b in zip(res.traces, one.traces))
+            assert _max_abs(res.motion[i], one.motion) == 0.0
+    assert launches["demons_onepass_batch"] == sum(int(t.iterations.max()) for t in vm.traces)
+    assert launches["demons_onepass"] == 0, launches
+    assert launches["warp2d_batch"] > 0 and launches["compose_batch"] > 0, launches
+    assert len({tuple(int(t.iterations[i]) for t in vm.traces) for i in range(4)}) > 1

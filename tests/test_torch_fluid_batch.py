@@ -203,7 +203,12 @@ def test_fluid_without_a_pair_axis_maps(stacks, overrides):
 
 @pytest.mark.parametrize("method", [T.Method.THIRIONS_DEMONS, T.Method.DIFFEOMORPHIC_DEMONS])
 def test_demons_still_refuse_vmap(stacks, method):
-    cfg = T.RegConfig(method=method, niter=(5,))
+    """The demons routes without a pair axis: Thirion on the op chain
+    (``conv_flatwrap``), diffeomorphic demons on the two-kernel route. The
+    onepass route runs in lockstep (``test_torch_demons_batch.py``)."""
+    extra = (dict(compat=T.CompatFlags(conv_flatwrap=True))
+             if method == T.Method.THIRIONS_DEMONS else dict(sigma_i=0.25, sigma_x=1.0))
+    cfg = T.RegConfig(method=method, niter=(5,), **extra)
     assert _resolve_impl(cfg, "auto", SHAPE) == "map"
     with pytest.raises(NotImplementedError, match="A15 part 2"):
         register_batch(*stacks, cfg, impl="vmap", device="cpu")
